@@ -1,0 +1,9 @@
+"""Video Depth Anything on PyTorch and CUDA (NVIDIA Hopper).
+
+A port of the JAX package beside it: same models, same
+sliding-window pipeline, same public layouts (NHWC maps, ``[B, S, C]``
+tokens, ``[P, T, C]`` temporal tokens). Spatial and temporal attention run
+hand-written CUDA kernels (``kernels/``, sources in ``csrc/``) on the card;
+every other op is plain PyTorch. Entry points run on ``cuda`` unless the
+caller asks for the CPU.
+"""

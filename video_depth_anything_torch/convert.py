@@ -1,0 +1,105 @@
+"""Carry weights across: the JAX package's parameter tree -> this port's
+``state_dict``.
+
+The port's own copy of the logic of the JAX package's
+``utils/torch_convert.py::export_torch_state_dict``. The input is the JAX
+tree as nested dicts of NumPy arrays (encoder blocks stacked on a leading
+depth axis, as ``init_params`` and ``.npz`` checkpoints hold them); the
+output is keyed like the original checkpoints, which the port's modules
+mirror, so ``VideoDepthAnything.load_state_dict(..., strict=True)`` takes
+it:
+
+  - stacked ``blocks`` leaves       -> ``blocks.{i}.*``
+  - encoder q / k / v projections   -> one fused ``attn.qkv`` ([3D, D], [3D])
+  - linear ``w`` [in, out]          -> ``weight`` [out, in]
+  - conv ``w`` HWIO                 -> OIHW (``resize_layers.{0,1}``: HWOI -> IOHW,
+                                       the same permutation)
+  - norm ``scale`` / ``bias``       -> ``weight`` / ``bias``
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _emit(sd: dict, key: str, leaf: str, v: np.ndarray) -> None:
+    base = key[: -len(leaf)]
+    if leaf == "w":
+        sd[base + "weight"] = v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T
+    elif leaf == "b":
+        sd[base + "bias"] = v
+    elif leaf == "scale":
+        sd[base + "weight"] = v
+    else:  # norm bias, LayerScale gamma, APE pe, cls_token, pos_embed, ...
+        sd[key] = v
+
+
+def _walk(sd: dict, node: Mapping, prefix: str) -> None:
+    for k, v in node.items():
+        key = f"{prefix}.{k}" if prefix else str(k)
+        if k in ("qs", "w_i8", "ws"):
+            raise ValueError(f"cannot convert int8-quantized leaf {key}")
+        if isinstance(v, Mapping):
+            _walk(sd, v, key)
+        else:
+            _emit(sd, key, str(k), np.asarray(v, dtype=np.float32))
+
+
+def _numpy(node: Mapping) -> dict:
+    return {k: _numpy(v) if isinstance(v, Mapping) else np.asarray(v)
+            for k, v in node.items()}
+
+
+def _block(blocks: Mapping, i: int) -> dict:
+    return {k: _block(v, i) if isinstance(v, Mapping) else v[i]
+            for k, v in blocks.items()}
+
+
+def state_dict_from_params(params: Mapping, depth: int) -> Dict[str, torch.Tensor]:
+    """JAX parameter tree (nested dicts of arrays) -> port state_dict.
+
+    ``depth`` is the encoder's block count (``cfg.vit.depth``).
+    """
+    sd: Dict[str, np.ndarray] = {}
+    for top, sub in params.items():
+        if top != "pretrained":
+            _walk(sd, {top: sub}, "")
+            continue
+        for k, v in sub.items():
+            if k != "blocks":
+                _walk(sd, {k: v}, "pretrained")
+                continue
+            v = _numpy(v)   # one host copy of each stacked leaf
+            for i in range(depth):
+                blk = _block(v, i)
+                attn = blk["attn"]
+                pre = f"pretrained.blocks.{i}.attn.qkv."
+                sd[pre + "weight"] = np.concatenate(
+                    [attn[n]["w"].T for n in "qkv"], axis=0).astype(np.float32)
+                if "b" in attn["q"]:
+                    sd[pre + "bias"] = np.concatenate(
+                        [attn[n]["b"] for n in "qkv"]).astype(np.float32)
+                blk["attn"] = {n: p for n, p in attn.items() if n not in ("q", "k", "v")}
+                _walk(sd, blk, f"pretrained.blocks.{i}")
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def model_from_params(params: Mapping, cfg) -> torch.nn.Module:
+    """A VideoDepthAnything (eval mode, CPU) holding the JAX tree's weights,
+    loaded with strict=True."""
+    from .models import build_model
+
+    model = build_model(cfg)
+    model.load_state_dict(state_dict_from_params(params, cfg.vit.depth), strict=True)
+    return model
+
+
+def load_checkpoint(model: torch.nn.Module, path: str) -> torch.nn.Module:
+    """Load a reference ``.pth`` state_dict into ``model`` with strict=True."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "model" in sd and isinstance(sd["model"], dict):
+        sd = sd["model"]
+    model.load_state_dict(sd, strict=True)
+    return model

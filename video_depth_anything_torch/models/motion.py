@@ -1,0 +1,137 @@
+"""Temporal motion modules: per-pixel attention over the frames of a window.
+
+The port of the JAX package's ``models/motion.py``: GroupNorm(32,
+eps 1e-6) -> proj_in -> (2 x [LayerNorm eps 1e-5 -> temporal attention
+with the sinusoidal APE] + GEGLU feed-forward) -> zero-initialised
+proj_out + residual. Maps are NHWC ``[B*T, H, W, C]``; the transformer
+blocks run in the attention-native ``[B*H*W, T, C]`` layout (one transpose
+in, one out), and the attention itself is kernel K2
+(``kernels/temporal_attention.py``).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..kernels.temporal_attention import temporal_attention
+from ..ops import nn as vnn
+
+
+def sinusoidal_pe(d_model: int, max_len: int) -> np.ndarray:
+    """APE table [1, max_len, d_model]: sin on even channels, cos on odd."""
+    position = np.arange(max_len, dtype=np.float64)[:, None]
+    div = np.exp(np.arange(0, d_model, 2, dtype=np.float64)
+                 * (-math.log(10000.0) / d_model))
+    pe = np.zeros((1, max_len, d_model), dtype=np.float64)
+    pe[0, :, 0::2] = np.sin(position * div)
+    pe[0, :, 1::2] = np.cos(position * div)
+    return pe.astype(np.float32)
+
+
+class PositionalEncoding(nn.Module):
+    def __init__(self, d_model: int, max_len: int):
+        super().__init__()
+        self.register_buffer("pe", torch.tensor(sinusoidal_pe(d_model, max_len)),
+                             persistent=True)
+
+
+class TemporalAttention(nn.Module):
+    def __init__(self, dim: int, num_heads: int, max_len: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.to_q = nn.Linear(dim, dim, bias=False)
+        self.to_k = nn.Linear(dim, dim, bias=False)
+        self.to_v = nn.Linear(dim, dim, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(dim, dim), nn.Dropout(0.0)])
+        self.pos_encoder = PositionalEncoding(dim, max_len)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: [P, T, C] -> [P, T, C]."""
+        t, c = x.shape[1], x.shape[2]
+        x = x + self.pos_encoder.pe[:, :t].to(x.dtype)
+        q = vnn.linear(x, self.to_q.weight)
+        k = vnn.linear(x, self.to_k.weight)
+        v = vnn.linear(x, self.to_v.weight)
+        o = temporal_attention(q, k, v, num_heads=self.num_heads,
+                               scale=(c // self.num_heads) ** -0.5)
+        out = self.to_out[0]
+        return vnn.linear(o, out.weight, out.bias)
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, 2 * inner)
+
+
+class FeedForward(nn.Module):
+    """GEGLU feed-forward: val * gelu(gate) -> linear (inner = 4C)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.net = nn.ModuleList([GEGLU(dim, 4 * dim), nn.Dropout(0.0),
+                                  nn.Linear(4 * dim, dim)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        proj = self.net[0].proj
+        val, gate = vnn.linear(x, proj.weight, proj.bias).chunk(2, dim=-1)
+        out = self.net[2]
+        return vnn.linear(val * vnn.gelu(gate), out.weight, out.bias)
+
+
+class TemporalTransformerBlock(nn.Module):
+    def __init__(self, dim: int, num_heads: int, num_attention_blocks: int,
+                 max_len: int):
+        super().__init__()
+        self.attention_blocks = nn.ModuleList(
+            TemporalAttention(dim, num_heads, max_len)
+            for _ in range(num_attention_blocks))
+        self.norms = nn.ModuleList(nn.LayerNorm(dim, eps=1e-5)
+                                   for _ in range(num_attention_blocks))
+        self.ff = FeedForward(dim)
+        self.ff_norm = nn.LayerNorm(dim, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for norm, attn in zip(self.norms, self.attention_blocks):
+            x = x + attn(vnn.layer_norm(x, norm.weight, norm.bias, 1e-5))
+        return x + self.ff(vnn.layer_norm(x, self.ff_norm.weight,
+                                          self.ff_norm.bias, 1e-5))
+
+
+class TemporalTransformer3DModel(nn.Module):
+    def __init__(self, dim: int, num_heads: int, num_transformer_block: int,
+                 num_attention_blocks: int, max_len: int):
+        super().__init__()
+        self.norm = nn.GroupNorm(32, dim, eps=1e-6)
+        self.proj_in = nn.Linear(dim, dim)
+        self.transformer_blocks = nn.ModuleList(
+            TemporalTransformerBlock(dim, num_heads, num_attention_blocks, max_len)
+            for _ in range(num_transformer_block))
+        self.proj_out = nn.Linear(dim, dim)
+        nn.init.zeros_(self.proj_out.weight)   # zero_initialize
+        nn.init.zeros_(self.proj_out.bias)
+
+
+class TemporalModule(nn.Module):
+    def __init__(self, dim: int, num_heads: int = 8, num_transformer_block: int = 1,
+                 num_attention_blocks: int = 2, max_len: int = 32):
+        super().__init__()
+        self.temporal_transformer = TemporalTransformer3DModel(
+            dim, num_heads, num_transformer_block, num_attention_blocks, max_len)
+
+    def forward(self, x: torch.Tensor, b: int, t: int) -> torch.Tensor:
+        """x: NHWC [B*T, H, W, C] -> same shape."""
+        tt = self.temporal_transformer
+        bt, h, w, c = x.shape
+        hw = h * w
+        y = vnn.group_norm(x, tt.norm.weight, tt.norm.bias, 32, 1e-6)
+        y = vnn.linear(y.reshape(bt, hw, c), tt.proj_in.weight, tt.proj_in.bias)
+        y = y.reshape(b, t, hw, c).transpose(1, 2).reshape(b * hw, t, c)
+        for blk in tt.transformer_blocks:
+            y = blk(y)
+        y = y.reshape(b, hw, t, c).transpose(1, 2).reshape(bt, hw, c)
+        y = vnn.linear(y, tt.proj_out.weight, tt.proj_out.bias)
+        return y.reshape(bt, h, w, c) + x

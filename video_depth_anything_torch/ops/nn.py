@@ -1,0 +1,92 @@
+"""Core NN primitives on channel-last tensors, with fp32 islands.
+
+Weights keep PyTorch's own layouts (the checkpoint's): linear ``[out, in]``,
+conv ``OIHW``, transposed conv ``IOHW``. Activations keep the JAX package's
+layouts: maps are NHWC. A contiguous NHWC tensor permuted to NCHW is a
+channels-last tensor, which the convolution takes without a copy and
+returns channels-last, so the permutes around it move no bytes.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: torch.Tensor | None = None) -> torch.Tensor:
+    return F.linear(x, weight.to(x.dtype),
+                    None if bias is None else bias.to(x.dtype))
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm over the last axis with fp32 statistics.
+
+    fp32 input: the exact two-pass computation. bf16 input: mean and
+    E[x^2] - mean^2 accumulate in fp32, the normalisation runs in bf16 (the
+    JAX package's rule, ops/nn.py::layer_norm).
+    """
+    if x.dtype == torch.float32:
+        mean = x.mean(-1, keepdim=True)
+        var = (x - mean).square().mean(-1, keepdim=True)
+        y = (x - mean) * torch.rsqrt(var + eps)
+        return y * weight + bias
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.square().mean(-1, keepdim=True) - mean.square()
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    y = (x - mean.to(x.dtype)) * inv
+    return y * weight.to(x.dtype) + bias.to(x.dtype)
+
+
+def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               num_groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
+    """GroupNorm over the channels of x[B, ..., C], fp32 two-pass statistics
+    over (spatial, channels-in-group) per sample; output in x's dtype."""
+    b, c = x.shape[0], x.shape[-1]
+    if c % num_groups:
+        raise ValueError(f"channels {c} not divisible by {num_groups} groups")
+    xf = x.float().reshape(b, -1, num_groups, c // num_groups)
+    mean = xf.mean(dim=(1, 3), keepdim=True)
+    d = xf - mean
+    var = d.square().mean(dim=(1, 3), keepdim=True)
+    y = (d * torch.rsqrt(var + eps)).reshape(b, -1, c)
+    y = y * weight.float() + bias.float()
+    return y.to(x.dtype).reshape(x.shape)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact erf GELU in fp32; the tanh form in bf16 (its error is below
+    bf16 rounding)."""
+    if x.dtype == torch.bfloat16:
+        return F.gelu(x, approximate="tanh")
+    return F.gelu(x)
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor,
+           bias: torch.Tensor | None = None, stride: int = 1,
+           padding: int = 0) -> torch.Tensor:
+    """NHWC convolution with an OIHW weight (torch Conv2d semantics)."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype),
+                 None if bias is None else bias.to(x.dtype),
+                 stride=stride, padding=padding)
+    return y.permute(0, 2, 3, 1)
+
+
+def conv_transpose2d(x: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor | None, stride: int) -> torch.Tensor:
+    """NHWC ConvTranspose2d(k == stride, no padding) with an IOHW weight.
+
+    With kernel == stride every output pixel takes exactly one (input
+    pixel, tap) term, so the transpose is one matmul and a block reshape.
+    """
+    cin, cout, kh, kw = weight.shape
+    if (kh, kw) != (stride, stride):
+        raise ValueError("only kernel_size == stride is supported")
+    b, h, w, _ = x.shape
+    wmat = weight.to(x.dtype).permute(0, 2, 3, 1).reshape(cin, kh * kw * cout)
+    y = torch.matmul(x, wmat).reshape(b, h, w, kh, kw, cout)
+    y = y.permute(0, 1, 3, 2, 4, 5).reshape(b, h * kh, w * kw, cout)
+    if bias is not None:
+        y = y + bias.to(x.dtype)
+    return y
