@@ -13,6 +13,9 @@ printing no result, without either. Phases, each fatal on failure:
   (c) K1 spatial attention against its plain version, bf16 and fp32, at
       the encoders' shapes (strided views of a fused qkv, as the model
       passes them).
+  (c') K3 int8-QK spatial attention against its plain version, bf16 and
+      fp32 v, at the same shapes (random int8 q and k, v a column view of
+      a fused qkv), and its odd-head fallback (K1 on dequantized q, k).
   (d) K2 temporal attention against its plain version at every motion
       module shape of vits and vitl at 518x518 and of vits at 518x686 (the
       main path's), T = 32 and T = 4.
@@ -22,9 +25,17 @@ printing no result, without either. Phases, each fatal on failure:
       counts are read around this run; then bf16 is held against fp32 on
       the card (drift budget), and the card's fp32 run of a reduced clip
       against the port's plain path on the CPU.
-  (f) timing: one window forward at 1x32x518x518 in bf16, vits and vitl,
-      and the cached steady state per new frame for vits; then a
-      torch.profiler breakdown of the vits window by kernel kind.
+  (e') the int8 main path: the same video through
+      VideoDepthPipeline(quant="int8", calib_path=...), twice: the first
+      call calibrates and writes the side file, the second (a new
+      pipeline) reads it; launch counts are read around each call. int8
+      is held against the card's fp32 output within the int8 drift
+      budget, and the card's int8 run of the reduced clip against the CPU
+      plain int8 run on the same side file.
+  (f) timing: one window forward at 1x32x518x518 in bf16 and in int8,
+      vits and vitl, and the cached steady state per new frame for vits;
+      then a torch.profiler breakdown of the vits window by kernel kind,
+      bf16 and int8.
   (g) one JSON line {"kernels": [...]}, then the card's name and power
       limit, then the last line {"ok": true, "device": {...}}.
 """
@@ -33,15 +44,39 @@ from __future__ import annotations
 import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12               # H100 SXM, published
 PEAK_FLOPS = {"bfloat16": 989e12,       # dense tensor-core bf16
               "float32": 67e12}         # fp32 outside the tensor cores (no TF32)
-TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # max abs error against the plain version
+PEAK_INT8_OPS = 1979e12                 # dense tensor-core int8
+# Max abs error against the plain version. The spatial kernels' outputs
+# are near-uniform averages of unit-normal v over 1370-1814 keys (mean |o|
+# about 0.03, max 0.2 to 0.7), so bf16 is held to 4e-3: a few times the
+# bf16 rounding seen (1e-3 to 2e-3), below what a dropped key tile or one
+# head's mis-scaled softmax gives (5e-2 and up). K2 averages over at most
+# 32 frames: outputs of order 1, where a bf16 step is 4e-3 to 1.6e-2.
+TOL = {"spatial_attention": {"bfloat16": 4e-3, "float32": 1e-4},
+       "spatial_attention_qk8": {"bfloat16": 4e-3, "float32": 1e-4},
+       "temporal_attention": {"bfloat16": 2e-2, "float32": 1e-4}}
+
+
+def held(kernel, name, got, ref):
+    """(max abs error, its tolerance, whether it holds, and a print of the
+    error beside the reference's own size)."""
+    import torch
+
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = TOL[kernel][name]
+    ok = err <= tol and bool(torch.isfinite(got).all())
+    return err, ok, (f"max_abs_err {err:.3e} (tol {tol:g}; reference mean |o| "
+                     f"{ref.float().abs().mean().item():.3e}, max |o| "
+                     f"{ref.float().abs().max().item():.3e})")
 
 
 def card() -> str:
@@ -91,8 +126,7 @@ def check_k1(gen, record):
                 got = k1.spatial_attention(qq, kk, vv, num_heads=h, scale=0.125)
                 ref = k1.spatial_attention_plain(qq, kk, vv, num_heads=h, scale=0.125)
                 torch.cuda.synchronize()
-                err = (got.float() - ref.float()).abs().max().item()
-                ok = err <= TOL[name] and bool(torch.isfinite(got).all())
+                err, ok, said = held("spatial_attention", name, got, ref)
                 iters = 5 if name == "float32" else 20
                 ms = time_ms(lambda: k1.spatial_attention(qq, kk, vv, num_heads=h, scale=0.125), iters)
                 plain = time_ms(lambda: k1.spatial_attention_plain(qq, kk, vv, num_heads=h, scale=0.125), 3, 1)
@@ -100,16 +134,85 @@ def check_k1(gen, record):
                 lib = time_ms(lambda: F.scaled_dot_product_attention(*heads, scale=0.125), iters)
                 bms, by = bound_ms(4 * b * h * s * s * 64, 4 * b * s * c * qq.element_size(), name)
                 print(f"K1 {name:8s} {label:20s} {layout:11s} [{b},{s},{c}] H={h}: "
-                      f"max_abs_err {err:.3e} (tol {TOL[name]:g}) kernel {ms:.3f} ms, "
-                      f"plain {plain:.3f} ms, sdpa {lib:.3f} ms, bound {bms:.4f} ms ({by})",
-                      flush=True)
+                      f"{said} kernel {ms:.3f} ms, plain {plain:.3f} ms, sdpa {lib:.3f} ms, "
+                      f"bound {bms:.4f} ms ({by})", flush=True)
                 if not ok:
-                    raise AssertionError(f"K1 {name} {label} {layout}: error {err} > {TOL[name]}")
+                    raise AssertionError(f"K1 {name} {label} {layout}: {said}")
                 record("spatial_attention", name, err)
                 if name == "bfloat16" and label.endswith("cached") and layout == "strided qkv":
                     main = dict(shape=[b, s, c], heads=h, dtype=name, ms=ms, plain_ms=plain,
                                 library_ms=lib, bound_ms=bms, bound_by=by)
             del qkv, q, k, v
+    return main
+
+
+def check_k3(gen, record):
+    """K3 at the encoder shapes and the odd-head fallback; returns the
+    main-path entry's numbers."""
+    import torch
+    import torch.nn.functional as F
+    from video_depth_anything_torch import kernels
+    from video_depth_anything_torch.kernels import spatial_attention as k1
+    from video_depth_anything_torch.kernels import spatial_attention_qk8 as k3
+
+    # (amax_q / 127 * dh^-0.5, amax_k / 127) for |q|, |k| up to about 1.6:
+    # logits of a few units on random int8.
+    scales = torch.tensor([1.6 / 127 / 8, 1.6 / 127], device="cuda")
+    shapes = [("vits 518^2", 32, 1370, 6), ("vitl 518^2", 32, 1370, 16),
+              ("vits 518x686 cached", 22, 1814, 6)]
+    main = None
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[1]
+        for label, b, s, h in shapes:
+            c = h * 64
+            q8, k8 = (torch.randint(-127, 128, (b, s, c), device="cuda", generator=gen,
+                                    dtype=torch.int8) for _ in range(2))
+            qkv = torch.randn(b, s, 3 * c, device="cuda", generator=gen).to(dt)
+            v = qkv[..., 2 * c:]
+            got = k3.spatial_attention_qk8(q8, k8, v, scales, num_heads=h)
+            ref = k3.spatial_attention_qk8_plain(q8, k8, v, scales, num_heads=h)
+            torch.cuda.synchronize()
+            err, ok, said = held("spatial_attention_qk8", name, got, ref)
+            ok = ok and got.dtype == dt
+            iters = 5 if name == "float32" else 20
+            ms = time_ms(lambda: k3.spatial_attention_qk8(q8, k8, v, scales, num_heads=h), iters)
+            plain = time_ms(lambda: k3.spatial_attention_qk8_plain(q8, k8, v, scales, num_heads=h), 3, 1)
+            # SDPA on q and k dequantized to v's dtype: the same function up
+            # to the int8 rounding of the scores.
+            heads = [t.unflatten(-1, (h, 64)).transpose(1, 2)
+                     for t in (q8.to(dt) * scales[0].to(dt), k8.to(dt) * scales[1].to(dt), v)]
+            lib = time_ms(lambda: F.scaled_dot_product_attention(*heads, scale=1.0), iters)
+            ops = 2 * b * h * s * s * 64
+            t_ops = ops / PEAK_INT8_OPS + ops / PEAK_FLOPS[name]
+            t_bytes = b * s * c * (2 + 2 * v.element_size()) / HBM_BYTES_PER_S
+            bms, by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+            print(f"K3 {name:8s} {label:20s} [{b},{s},{c}] H={h}: {said} kernel {ms:.3f} ms, "
+                  f"plain {plain:.3f} ms, sdpa {lib:.3f} ms, bound {bms:.4f} ms ({by})",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"K3 {name} {label}: {said}, dtype {got.dtype}")
+            record("spatial_attention_qk8", name, err)
+            if name == "bfloat16" and label.endswith("cached"):
+                main = dict(shape=[b, s, c], heads=h, dtype=name, ms=ms, plain_ms=plain,
+                            library_ms=lib, bound_ms=bms, bound_by=by)
+            del q8, k8, qkv, v, got, ref, heads
+            torch.cuda.empty_cache()
+        # Odd H cannot pair heads: q, k dequantize into K1 at scale 1, as
+        # in the JAX package; held against K1's plain version on the same
+        # dequantized q, k.
+        q8, k8 = (torch.randint(-127, 128, (2, 300, 192), device="cuda", generator=gen,
+                                dtype=torch.int8) for _ in range(2))
+        v = torch.randn(2, 300, 192, device="cuda", generator=gen).to(dt)
+        kernels.reset_launch_counts()
+        got = k3.spatial_attention_qk8(q8, k8, v, scales, num_heads=3)
+        counts = kernels.launch_counts()
+        ref = k1.spatial_attention_plain(q8.to(dt) * scales[0].to(dt), k8.to(dt) * scales[1].to(dt),
+                                         v, num_heads=3, scale=1.0)
+        err, ok, said = held("spatial_attention", name, got, ref)
+        print(f"K3 {name:8s} odd-H fallback [2,300,192] H=3: {said} against K1's plain "
+              f"version; launches {counts}", flush=True)
+        if not (ok and counts["spatial_attention"] == 1 and counts["spatial_attention_qk8"] == 0):
+            raise AssertionError(f"K3 {name} fallback: {said}, launches {counts}")
     return main
 
 
@@ -136,9 +239,8 @@ def check_k2(gen, record):
                     got = k2.temporal_attention(q, k, v, num_heads=8, scale=dh ** -0.5)
                     ref = k2.temporal_attention_plain(q, k, v, num_heads=8, scale=dh ** -0.5)
                     torch.cuda.synchronize()
-                    err = (got.float() - ref.float()).abs().max().item()
-                    line = (f"K2 {name:8s} {enc:12s} module {mod} [{p},{t},{c}] dh={dh}: "
-                            f"max_abs_err {err:.3e} (tol {TOL[name]:g})")
+                    err, ok, said = held("temporal_attention", name, got, ref)
+                    line = f"K2 {name:8s} {enc:12s} module {mod} [{p},{t},{c}] dh={dh}: {said}"
                     if t == 32:
                         ms = time_ms(lambda: k2.temporal_attention(q, k, v, num_heads=8, scale=dh ** -0.5), 20)
                         plain = time_ms(lambda: k2.temporal_attention_plain(q, k, v, num_heads=8, scale=dh ** -0.5), 5, 1)
@@ -152,8 +254,8 @@ def check_k2(gen, record):
                                         plain_ms=plain, library_ms=lib, bound_ms=bms,
                                         bound_by=by)
                     print(line, flush=True)
-                    if not (err <= TOL[name] and bool(torch.isfinite(got).all())):
-                        raise AssertionError(f"K2 {name} {enc} module {mod} T={t}: error {err}")
+                    if not ok:
+                        raise AssertionError(f"K2 {name} {enc} module {mod} T={t}: {said}")
                     record("temporal_attention", name, err)
     return main
 
@@ -188,7 +290,8 @@ def main_path(cardname):
     if d16.shape != frames.shape[:3] or not np.isfinite(d16).all():
         raise AssertionError(f"bad output: shape {d16.shape}, finite {np.isfinite(d16).all()}")
     want = {"spatial_attention": cfg.vit.depth * n_win,   # 12 per encode
-            "temporal_attention": 8 * n_win}                # 4 modules x 2 blocks
+            "temporal_attention": 8 * n_win,                # 4 modules x 2 blocks
+            "spatial_attention_qk8": 0}                     # int8 only
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
 
@@ -211,11 +314,109 @@ def main_path(cardname):
     if not err < 1e-3:
         raise AssertionError(f"card fp32 vs CPU plain path: {err}")
     del pipe, cpu
-    return launches
+    return launches, d32
+
+
+def int8_path(cardname, d32):
+    """(e'): the port's --int8 pipeline, vits at full width, on the card:
+    a first call that calibrates and writes the side file, a second (new
+    pipeline) that reads it. Returns the first call's launch counts."""
+    import numpy as np
+    import torch
+    from video_depth_anything_torch import kernels
+    from video_depth_anything_torch.config import get_model_config
+    from video_depth_anything_torch.models import build_model
+    from video_depth_anything_torch.pipeline import VideoDepthPipeline
+    from video_depth_anything_torch.pipeline.infer import scale_side_file
+    from video_depth_anything_torch.pipeline.windows import num_windows
+    from video_depth_anything_torch.utils.precision import (
+        INT8_MAX_ERR_FRAC, INT8_MEAN_ERR_FRAC, flip_floor_report, precision_drift_report,
+        synthetic_video)
+
+    cfg = get_model_config("vits")
+    model = build_model(cfg, seed=0, device="cuda")
+    frames = synthetic_video(n=100, hw=(480, 640), seed=3)
+    n_win = num_windows(len(frames))
+    depth = cfg.vit.depth
+    tmp = tempfile.mkdtemp(prefix="vda_int8_")
+    try:
+        path = os.path.join(tmp, "vits.int8calib.npz")
+        runs = []
+        for call in ("first (calibrates)", "second (reads the side file)"):
+            pipe = VideoDepthPipeline(cfg, model, quant="int8", calib_path=path)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            d8, _ = pipe.infer_video_depth(frames)      # bf16, keyframe cache
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+            print(f"int8 main path, {call}: vits bf16 cached, {len(frames)} frames 480x640 "
+                  f"-> 518x686, {n_win} windows in {wall:.3f} s on {cardname}; "
+                  f"launches {launches}", flush=True)
+            if d8.shape != frames.shape[:3] or not np.isfinite(d8).all():
+                raise AssertionError(f"bad int8 output: shape {d8.shape}")
+            calib = not runs   # the first call runs one float forward on window 0
+            want = {"spatial_attention": depth if calib else 0,
+                    "temporal_attention": 8 * (n_win + calib),
+                    "spatial_attention_qk8": depth * n_win}
+            if launches != want:
+                raise AssertionError(f"int8 launch counts {launches}, expected {want}")
+            runs.append((d8, launches))
+            del pipe
+        if not np.array_equal(runs[0][0], runs[1][0]):
+            raise AssertionError("the side file's scales gave other depths than calibration")
+        rep = precision_drift_report(runs[0][0], d32)
+        print(f"int8 (bf16) vs fp32 on the card: max {rep['max_err_frac']:.5f} / mean "
+              f"{rep['mean_err_frac']:.6f} of depth range {rep['depth_range']:.4f} "
+              f"(budget {INT8_MAX_ERR_FRAC} / {INT8_MEAN_ERR_FRAC})", flush=True)
+        if not (rep["max_err_frac"] < INT8_MAX_ERR_FRAC
+                and rep["mean_err_frac"] < INT8_MEAN_ERR_FRAC):
+            raise AssertionError(f"int8 drift over budget: {rep}")
+
+        # The reduced clip, fp32 activations, on the card and on the CPU
+        # plain path with the card's side file (identical scales), held to
+        # the flip floor measured here: the CPU run again with every absmax
+        # scaled by 1 + 1e-6 (utils/precision.py::flip_floor_report).
+        small = synthetic_video(n=40, hw=(140, 196), seed=5)
+        spath = os.path.join(tmp, "small.int8calib.npz")
+        g8, _ = VideoDepthPipeline(cfg, model, quant="int8", calib_path=spath
+                                   ).infer_video_depth(small, input_size=112, fp32=True)
+        cpu_model = copy.deepcopy(model).to("cpu")
+        c8, _ = VideoDepthPipeline(cfg, cpu_model, device="cpu", quant="int8", calib_path=spath
+                                   ).infer_video_depth(small, input_size=112, fp32=True)
+        npath = os.path.join(tmp, "nudged.int8calib.npz")
+        scale_side_file(spath, npath, 1 + 1e-6)
+        n8, _ = VideoDepthPipeline(cfg, cpu_model, device="cpu", quant="int8", calib_path=npath
+                                   ).infer_video_depth(small, input_size=112, fp32=True)
+        rep = flip_floor_report(g8, c8, n8)
+
+        def fmt(r):
+            return (f"aligned max {r['max_err_frac']:.5f} / mean {r['mean_err_frac']:.6f} of "
+                    f"the range, unaligned relative L2 {r['rel_l2']:.3e} / max "
+                    f"{r['raw_max_err_frac']:.5f} of the range")
+        lim = rep["limit"]
+        print(f"card int8 vs CPU plain int8 (fp32, shared side file), 40 frames 140x196 "
+              f"(input 112), depth range {rep['got']['depth_range']:.4f}: {fmt(rep['got'])}; "
+              f"flip floor (CPU, scales x (1 + 1e-6)): {fmt(rep['floor'])}; limits aligned max "
+              f"{lim['max_err_frac']:.5f} / mean {lim['mean_err_frac']:.6f}, relative L2 "
+              f"{lim['rel_l2']:.3e}", flush=True)
+        if not rep["ok"]:
+            raise AssertionError(f"card int8 vs CPU plain int8: {rep}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs[0][1]
+
+
+def _int8_model(model, x):
+    """The int8 model calibrated on x (one window)."""
+    from video_depth_anything_torch.ops.quant import quantize_model
+
+    return quantize_model(model, model.calibrate_stats(x))
 
 
 def timing(cardname):
-    """(f): window forward ms/frame at 1x32x518^2 bf16; cached steady state."""
+    """(f): window forward ms/frame at 1x32x518^2, bf16 and int8 (bf16
+    activations, calibrated on the timed window); cached steady state."""
     import torch
     from video_depth_anything_torch.config import INFER_LEN, KEYFRAMES, OVERLAP, get_model_config
     from video_depth_anything_torch.models import build_model
@@ -227,37 +428,42 @@ def timing(cardname):
         x = torch.randn(1, INFER_LEN, 518, 518, 3, device="cuda", generator=gen,
                         dtype=torch.bfloat16)
         with torch.no_grad():
-            torch.cuda.reset_peak_memory_stats()
-            ms = time_ms(lambda: model(x), 5, 2)
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            feats = model.encode(x[0])
-            enc_ms = time_ms(lambda: model.encode(x[0]), 5, 1)
-            head_ms = time_ms(lambda: model.head(feats, 37, 37, 1, INFER_LEN), 5, 1)
-            print(f"{enc} window forward 1x32x518x518 bf16: {ms:.2f} ms/window, "
-                  f"{ms / INFER_LEN:.3f} ms/frame (encoder {enc_ms:.2f} ms, head "
-                  f"{head_ms:.2f} ms), peak {peak:.2f} GiB on {cardname}", flush=True)
-            if enc == "vits":
-                kf = torch.tensor(KEYFRAMES, device="cuda")
-                new = x[0, OVERLAP:]
+            for mode in ("bf16", "int8"):
+                m = model if mode == "bf16" else _int8_model(model, x)
+                iters = 3 if mode == "int8" and enc == "vitl" else 5
+                torch.cuda.reset_peak_memory_stats()
+                ms = time_ms(lambda: m(x), iters, 2)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                feats = m.encode(x[0])
+                enc_ms = time_ms(lambda: m.encode(x[0]), iters, 1)
+                head_ms = time_ms(lambda: m.head(feats, 37, 37, 1, INFER_LEN), iters, 1)
+                print(f"{enc} window forward 1x32x518x518 {mode}: {ms:.2f} ms/window, "
+                      f"{ms / INFER_LEN:.3f} ms/frame (encoder {enc_ms:.2f} ms, head "
+                      f"{head_ms:.2f} ms), peak {peak:.2f} GiB on {cardname}", flush=True)
+                if enc == "vits":
+                    kf = torch.tensor(KEYFRAMES, device="cuda")
+                    new = x[0, OVERLAP:]
 
-                def step():
-                    nonlocal feats
-                    f = model.encode(new)
-                    feats = [(torch.cat([pt[kf], nt]), torch.cat([pc[kf], nc]))
-                             for (pt, pc), (nt, nc) in zip(feats, f)]
-                    return model.head(feats, 37, 37, 1, INFER_LEN)
+                    def step():
+                        nonlocal feats
+                        f = m.encode(new)
+                        feats = [(torch.cat([pt[kf], nt]), torch.cat([pc[kf], nc]))
+                                 for (pt, pc), (nt, nc) in zip(feats, f)]
+                        return m.head(feats, 37, 37, 1, INFER_LEN)
 
-                ms = time_ms(step, 5, 2)
-                print(f"vits cached steady state 518x518 bf16: {ms:.2f} ms/window, "
-                      f"{ms / (INFER_LEN - OVERLAP):.3f} ms per new frame on {cardname}",
-                      flush=True)
-        del model, x, feats
+                    ms = time_ms(step, 5, 2)
+                    print(f"vits cached steady state 518x518 {mode}: {ms:.2f} ms/window, "
+                          f"{ms / (INFER_LEN - OVERLAP):.3f} ms per new frame on {cardname}",
+                          flush=True)
+                del m, feats
+        del model, x
         torch.cuda.empty_cache()
 
 
-def breakdown(cardname):
-    """(f) continued: torch.profiler over one vits bf16 window forward at
-    1x32x518x518 — device time by kernel, by kind, and the idle share."""
+def breakdown(cardname, mode="bf16"):
+    """(f) continued: torch.profiler over one vits window forward at
+    1x32x518x518 (bf16, or int8 with bf16 activations) — device time by
+    kernel, by kind, and the idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from video_depth_anything_torch.config import get_model_config
@@ -268,6 +474,8 @@ def breakdown(cardname):
     x = torch.randn(1, 32, 518, 518, 3, device="cuda", generator=gen, dtype=torch.bfloat16)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with torch.no_grad():
+        if mode == "int8":
+            model = _int8_model(model, x)
         model(x)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -285,7 +493,8 @@ def breakdown(cardname):
         return
     # First match wins: cuDNN's convolutions are named "..._implicit_gemm",
     # and cuBLAS's Hopper GEMMs "nvjet_...".
-    kinds = (("K1 spatial_attention", ("attention_bf16", "attention_f32")),
+    kinds = (("K3 spatial_attention_qk8", ("attention_qk8",)),
+             ("K1 spatial_attention", ("attention_bf16", "attention_f32")),
              ("K2 temporal_attention", ("temporal_attention",)),
              ("convolution", ("fprop", "conv", "Conv", "winograd", "cudnn")),
              ("GEMM", ("nvjet", "gemm", "Gemm", "cutlass", "cublas")),
@@ -295,7 +504,7 @@ def breakdown(cardname):
     for key, ms, _ in rows:
         kind = next((k for k, pats in kinds if any(p in key for p in pats)), "elementwise")
         share[kind] = share.get(kind, 0.0) + ms
-    print(f"breakdown: vits bf16 window forward 1x32x518x518 on {cardname}: wall "
+    print(f"breakdown: vits {mode} window forward 1x32x518x518 on {cardname}: wall "
           f"{wall:.2f} ms (profiled), device busy {busy:.2f} ms, idle share "
           f"{max(0.0, 1 - busy / wall):.3f}", flush=True)
     for kind, ms in sorted(share.items(), key=lambda kv: -kv[1]):
@@ -333,11 +542,14 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1 = check_k1(gen, record)
+    k3 = check_k3(gen, record)
     k2 = check_k2(gen, record)
     torch.cuda.empty_cache()
-    launches = main_path(cardname)
+    launches, d32 = main_path(cardname)
+    launches_int8 = int8_path(cardname, d32)
     timing(cardname)
     breakdown(cardname)
+    breakdown(cardname, "int8")
 
     meta = {
         "spatial_attention": dict(
@@ -346,17 +558,23 @@ def main() -> int:
         "temporal_attention": dict(
             source="video_depth_anything_torch/csrc/temporal_attention.cu",
             replaces="video_depth_anything_tpu/ops/pallas_temporal_attention.py:72", main=k2),
+        "spatial_attention_qk8": dict(
+            source="video_depth_anything_torch/csrc/spatial_attention_qk8.cu",
+            replaces="video_depth_anything_tpu/ops/pallas_attention.py:320", main=k3),
     }
     kernels = []
     for name, m in meta.items():
         e = m["main"]
+        # K1 and K2 count the bf16 main path's launches, K3 the first int8
+        # call's (it runs on the int8 path only).
         kernels.append({
             "name": name, "route": "cuda", "source": m["source"], "replaces": m["replaces"],
-            "launches": launches[name],
+            "launches": (launches_int8 if name == "spatial_attention_qk8" else launches)[name],
+            "launches_int8_first_call": launches_int8[name],
             "max_abs_err": max(errs[(name, "bfloat16")], errs[(name, "float32")]),
             "max_abs_err_bf16": errs[(name, "bfloat16")],
             "max_abs_err_fp32": errs[(name, "float32")],
-            "tolerance": TOL,
+            "tolerance": TOL[name],
             "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": e["library_ms"],
             "shape": e["shape"], "heads": e["heads"], "dtype": e["dtype"],

@@ -6,11 +6,12 @@ them all, so a run can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
-from . import spatial_attention, temporal_attention
+from . import spatial_attention, spatial_attention_qk8, temporal_attention
 
 KERNELS = {
     "spatial_attention": spatial_attention.spatial_attention,
     "temporal_attention": temporal_attention.temporal_attention,
+    "spatial_attention_qk8": spatial_attention_qk8.spatial_attention_qk8,
 }
 
 

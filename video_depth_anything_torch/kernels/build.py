@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exports a plain C entry point and is compiled on
 its own into ``_build/lib<name>-<hash>.so`` for ``sm_90a`` (the hash
-covers the source and the flags, so an edited source rebuilds). All
-sources compile in parallel, one nvcc process each, at the first call of
-any kernel. Nothing here runs at import time: the CPU tests import every
-module of the package on a machine that has no nvcc.
+covers the source, the shared headers ``csrc/*.cuh`` and the flags, so an
+edited source or header rebuilds). All sources compile in parallel, one
+nvcc process each, at the first call of any kernel. Nothing here runs at
+import time: the CPU tests import every module of the package on a machine
+that has no nvcc.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import subprocess
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("spatial_attention", "temporal_attention")
+SOURCES = ("spatial_attention", "temporal_attention", "spatial_attention_qk8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
 
@@ -39,8 +40,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

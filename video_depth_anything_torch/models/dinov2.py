@@ -6,6 +6,12 @@ eps 1e-6, and the +0.1 pos-embed interpolation offset. Attribute paths are
 the original checkpoint's keys (``blocks.{i}.attn.qkv`` is one fused
 Linear). Spatial attention runs kernel K1
 (``kernels/spatial_attention.py``) on the fused projection's column views.
+
+int8 mode (``ops/quant.py::quantize_encoder``): the fused qkv, proj, fc1
+and fc2 become ``QLinear`` sites, and q and k are re-quantized for kernel
+K3 (``kernels/spatial_attention_qk8.py``), which reads v in place. A
+``stats`` dict passed down the forward collects the calibration absmaxes
+(``calibrate``).
 """
 from __future__ import annotations
 
@@ -16,7 +22,9 @@ from torch import nn
 
 from ..config import ViTConfig
 from ..kernels.spatial_attention import spatial_attention
+from ..kernels.spatial_attention_qk8 import spatial_attention_qk8
 from ..ops import nn as vnn
+from ..ops import quant
 from ..ops.resize import cubic_resize_matrix
 
 
@@ -53,14 +61,28 @@ class Attention(nn.Module):
         self.num_heads = num_heads
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
+        # Static absmaxes of the q and k projection outputs (int8 mode only).
+        self.register_buffer("q_amax", None)
+        self.register_buffer("k_amax", None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
         d = x.shape[-1]
-        qkv = vnn.linear(x, self.qkv.weight, self.qkv.bias)  # [N, S, 3D]
-        o = spatial_attention(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:],
-                              num_heads=self.num_heads,
-                              scale=(d // self.num_heads) ** -0.5)
-        return vnn.linear(o, self.proj.weight, self.proj.bias)
+        dh = d // self.num_heads
+        qkv = quant.linear_maybe_q(self.qkv, x)  # [N, S, 3D]
+        q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+        if stats is not None:
+            stats["q_out"], stats["k_out"] = quant.amax(q), quant.amax(k)
+        if self.q_amax is not None:
+            scales = torch.stack([self.q_amax.float() * (dh ** -0.5 / 127.0),
+                                  self.k_amax.float() / 127.0])
+            o = spatial_attention_qk8(quant.quant_act(q, self.q_amax),
+                                      quant.quant_act(k, self.k_amax), v, scales,
+                                      num_heads=self.num_heads)
+        else:
+            o = spatial_attention(q, k, v, num_heads=self.num_heads, scale=dh ** -0.5)
+        if stats is not None:
+            stats["proj"] = quant.amax(o)
+        return quant.linear_maybe_q(self.proj, o)
 
 
 class Mlp(nn.Module):
@@ -69,9 +91,11 @@ class Mlp(nn.Module):
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = vnn.gelu(vnn.linear(x, self.fc1.weight, self.fc1.bias))
-        return vnn.linear(h, self.fc2.weight, self.fc2.bias)
+    def forward(self, x: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
+        h = vnn.gelu(quant.linear_maybe_q(self.fc1, x))
+        if stats is not None:
+            stats["fc2"] = quant.amax(h)
+        return quant.linear_maybe_q(self.fc2, h)
 
 
 class LayerScale(nn.Module):
@@ -93,11 +117,17 @@ class Block(nn.Module):
         self.mlp = Mlp(d, int(d * cfg.mlp_ratio))
         self.ls2 = LayerScale(d, cfg.init_values)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.attn(vnn.layer_norm(x, self.norm1.weight, self.norm1.bias, 1e-6))
-        x = x + self.ls1.gamma.to(x.dtype) * y
-        y = self.mlp(vnn.layer_norm(x, self.norm2.weight, self.norm2.bias, 1e-6))
-        return x + self.ls2.gamma.to(x.dtype) * y
+    def forward(self, x: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
+        """One block; with ``stats``, the block's activation absmaxes land
+        there under the ``quant.ACT_SITES`` names."""
+        y = vnn.layer_norm(x, self.norm1.weight, self.norm1.bias, 1e-6)
+        if stats is not None:
+            stats["qkv"] = quant.amax(y)
+        x = x + self.ls1.gamma.to(x.dtype) * self.attn(y, stats)
+        y = vnn.layer_norm(x, self.norm2.weight, self.norm2.bias, 1e-6)
+        if stats is not None:
+            stats["fc1"] = quant.amax(y)
+        return x + self.ls2.gamma.to(x.dtype) * self.mlp(y, stats)
 
 
 class DinoVisionTransformer(nn.Module):
@@ -135,12 +165,27 @@ class DinoVisionTransformer(nn.Module):
         """x: [N, H, W, 3] (H, W multiples of the patch) -> per tap
         (patch tokens [N, P, D], cls [N, D]) after the final norm. Blocks
         after the last tap do not run."""
+        return self._run(x, taps, None)
+
+    def calibrate(self, x: torch.Tensor, taps):
+        """One calibration forward: (the taps exactly as
+        ``get_intermediate_layers`` returns them, {site: [L'] fp32 absmax})
+        with L' = last tap + 1 blocks run. Feed the stats to
+        ``quant.quantize_encoder``."""
+        per_block: list[dict] = []
+        results = self._run(x, taps, per_block)
+        stats = {k: torch.stack([st[k] for st in per_block]) for k in per_block[0]}
+        return results, stats
+
+    def _run(self, x, taps, per_block):
         tokens = self.embed_tokens(x)
         outs = []
         for i in range(max(taps) + 1):
-            tokens = self.blocks[i](tokens)
-            if i in taps:
-                outs.append(tokens)
+            st = None if per_block is None else {}
+            tokens = self.blocks[i](tokens, st)
+            if per_block is not None:
+                per_block.append(st)
+            outs.extend(tokens for t in taps if t == i)
         results = []
         for o in outs:
             o = vnn.layer_norm(o, self.norm.weight, self.norm.bias, 1e-6)

@@ -7,6 +7,11 @@ proj_out + residual. Maps are NHWC ``[B*T, H, W, C]``; the transformer
 blocks run in the attention-native ``[B*H*W, T, C]`` layout (one transpose
 in, one out), and the attention itself is kernel K2
 (``kernels/temporal_attention.py``).
+
+int8 mode (``ops/quant.py::quantize_motion_module``): every linear becomes
+a ``QLinear``; to_q, to_k and to_v share one quantized input, and K2 runs
+on their dequantized outputs. A ``stats`` dict passed to ``forward``
+collects the calibration absmaxes, in the JAX package's tree.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from torch import nn
 
 from ..kernels.temporal_attention import temporal_attention
 from ..ops import nn as vnn
+from ..ops import quant
 
 
 def sinusoidal_pe(d_model: int, max_len: int) -> np.ndarray:
@@ -48,17 +54,21 @@ class TemporalAttention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(dim, dim), nn.Dropout(0.0)])
         self.pos_encoder = PositionalEncoding(dim, max_len)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
         """x: [P, T, C] -> [P, T, C]."""
         t, c = x.shape[1], x.shape[2]
         x = x + self.pos_encoder.pe[:, :t].to(x.dtype)
-        q = vnn.linear(x, self.to_q.weight)
-        k = vnn.linear(x, self.to_k.weight)
-        v = vnn.linear(x, self.to_v.weight)
+        if stats is not None:
+            stats["qkv"] = quant.amax(x)
+        x_i8 = None
+        if isinstance(self.to_q, quant.QLinear):
+            x_i8 = quant.quant_act(x, self.to_q.amax)
+        q, k, v = (quant.linear_maybe_q(m, x, x_i8) for m in (self.to_q, self.to_k, self.to_v))
         o = temporal_attention(q, k, v, num_heads=self.num_heads,
                                scale=(c // self.num_heads) ** -0.5)
-        out = self.to_out[0]
-        return vnn.linear(o, out.weight, out.bias)
+        if stats is not None:
+            stats["out"] = quant.amax(o)
+        return quant.linear_maybe_q(self.to_out[0], o)
 
 
 class GEGLU(nn.Module):
@@ -75,11 +85,14 @@ class FeedForward(nn.Module):
         self.net = nn.ModuleList([GEGLU(dim, 4 * dim), nn.Dropout(0.0),
                                   nn.Linear(4 * dim, dim)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        proj = self.net[0].proj
-        val, gate = vnn.linear(x, proj.weight, proj.bias).chunk(2, dim=-1)
-        out = self.net[2]
-        return vnn.linear(val * vnn.gelu(gate), out.weight, out.bias)
+    def forward(self, x: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
+        if stats is not None:
+            stats["ff_proj"] = quant.amax(x)
+        val, gate = quant.linear_maybe_q(self.net[0].proj, x).chunk(2, dim=-1)
+        h = val * vnn.gelu(gate)
+        if stats is not None:
+            stats["ff_g"] = quant.amax(h)
+        return quant.linear_maybe_q(self.net[2], h)
 
 
 class TemporalTransformerBlock(nn.Module):
@@ -94,11 +107,14 @@ class TemporalTransformerBlock(nn.Module):
         self.ff = FeedForward(dim)
         self.ff_norm = nn.LayerNorm(dim, eps=1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for norm, attn in zip(self.norms, self.attention_blocks):
-            x = x + attn(vnn.layer_norm(x, norm.weight, norm.bias, 1e-5))
+    def forward(self, x: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
+        for i, (norm, attn) in enumerate(zip(self.norms, self.attention_blocks)):
+            ast = None
+            if stats is not None:
+                ast = stats.setdefault("attn", {})[str(i)] = {}
+            x = x + attn(vnn.layer_norm(x, norm.weight, norm.bias, 1e-5), ast)
         return x + self.ff(vnn.layer_norm(x, self.ff_norm.weight,
-                                          self.ff_norm.bias, 1e-5))
+                                          self.ff_norm.bias, 1e-5), stats)
 
 
 class TemporalTransformer3DModel(nn.Module):
@@ -122,16 +138,28 @@ class TemporalModule(nn.Module):
         self.temporal_transformer = TemporalTransformer3DModel(
             dim, num_heads, num_transformer_block, num_attention_blocks, max_len)
 
-    def forward(self, x: torch.Tensor, b: int, t: int) -> torch.Tensor:
-        """x: NHWC [B*T, H, W, C] -> same shape."""
+    def forward(self, x: torch.Tensor, b: int, t: int,
+                stats: dict | None = None) -> torch.Tensor:
+        """x: NHWC [B*T, H, W, C] -> same shape. With ``stats``, the
+        module's activation absmaxes land there: {"proj_in", "blocks":
+        {"0": {"attn": {"0": {"qkv", "out"}, ...}, "ff_proj", "ff_g"}},
+        "proj_out"}."""
         tt = self.temporal_transformer
         bt, h, w, c = x.shape
         hw = h * w
         y = vnn.group_norm(x, tt.norm.weight, tt.norm.bias, 32, 1e-6)
-        y = vnn.linear(y.reshape(bt, hw, c), tt.proj_in.weight, tt.proj_in.bias)
+        y = y.reshape(bt, hw, c)
+        if stats is not None:
+            stats["proj_in"] = quant.amax(y)
+        y = quant.linear_maybe_q(tt.proj_in, y)
         y = y.reshape(b, t, hw, c).transpose(1, 2).reshape(b * hw, t, c)
-        for blk in tt.transformer_blocks:
-            y = blk(y)
+        for i, blk in enumerate(tt.transformer_blocks):
+            bst = None
+            if stats is not None:
+                bst = stats.setdefault("blocks", {})[str(i)] = {}
+            y = blk(y, bst)
         y = y.reshape(b, hw, t, c).transpose(1, 2).reshape(bt, hw, c)
-        y = vnn.linear(y, tt.proj_out.weight, tt.proj_out.bias)
+        if stats is not None:
+            stats["proj_out"] = quant.amax(y)
+        y = quant.linear_maybe_q(tt.proj_out, y)
         return y.reshape(bt, h, w, c) + x

@@ -42,9 +42,11 @@ class DPTHeadTemporal(nn.Module):
         self.motion_modules = nn.ModuleList(
             TemporalModule(c, **mkw) for c in (oc[2], oc[3], f, f))
 
-    def forward(self, feats, ph: int, pw: int, b: int, t: int) -> torch.Tensor:
+    def forward(self, feats, ph: int, pw: int, b: int, t: int,
+                stats: dict | None = None) -> torch.Tensor:
         """feats: 4 x (patch tokens [B*T, P, D], cls [B*T, D]) ->
-        depth [B*T, 14*ph, 14*pw, 1] fp32."""
+        depth [B*T, 14*ph, 14*pw, 1] fp32. With ``stats``, each motion
+        module's calibration tree lands there under "0".."3"."""
         n, _, d = feats[0][0].shape
         g = [x.reshape(n, ph, pw, d) for x, _ in feats]
         pj, rl = self.projects, self.resize_layers
@@ -58,14 +60,19 @@ class DPTHeadTemporal(nn.Module):
         layer_4 = vnn.conv2d(project(3), rl[3].weight, rl[3].bias, stride=2,
                              padding=1)
 
-        mm = self.motion_modules
-        layer_3 = mm[0](layer_3, b, t)
-        layer_4 = mm[1](layer_4, b, t)
+        def tmod(i, feat):
+            st = None
+            if stats is not None:
+                st = stats[str(i)] = {}
+            return self.motion_modules[i](feat, b, t, st)
+
+        layer_3 = tmod(0, layer_3)
+        layer_4 = tmod(1, layer_4)
         sc = self.scratch
         l1, l2, l3, l4 = sc.rn([layer_1, layer_2, layer_3, layer_4])
 
-        path_4 = mm[2](sc.refinenet4(l4, size=l3.shape[1:3]), b, t)
-        path_3 = mm[3](sc.refinenet3(path_4, l3, size=l2.shape[1:3]), b, t)
+        path_4 = tmod(2, sc.refinenet4(l4, size=l3.shape[1:3]))
+        path_3 = tmod(3, sc.refinenet3(path_4, l3, size=l2.shape[1:3]))
         path_2 = sc.refinenet2(path_3, l2, size=l1.shape[1:3])
         path_1 = sc.refinenet1(path_2, l1)
         return sc.output_head(path_1, (14 * ph, 14 * pw))
@@ -87,6 +94,19 @@ class VideoDepthAnything(nn.Module):
         """Normalised frames [N, H, W, 3] -> the 4 tap features."""
         return self.pretrained.get_intermediate_layers(
             frames, self.cfg.intermediate_layer_idx)
+
+    def calibrate_stats(self, x: torch.Tensor) -> dict:
+        """One int8-calibration forward (the float path) over x [B, T, H, W,
+        3] normalised: {"encoder": {site: [L'] fp32}, "motion": {"0".."3":
+        module trees}} of 0-d and [L'] fp32 tensors, the JAX package's tree.
+        Feed it to ``ops.quant.quantize_model``."""
+        b, t, h, w, _ = x.shape
+        p = self.cfg.vit.patch_size
+        feats, enc = self.pretrained.calibrate(x.reshape(b * t, h, w, 3),
+                                               self.cfg.intermediate_layer_idx)
+        motion: dict = {}
+        self.head(feats, h // p, w // p, b, t, stats=motion)
+        return {"encoder": enc, "motion": motion}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: [B, T, H, W, 3] normalised -> depth [B, T, H, W] fp32, ReLU'd."""

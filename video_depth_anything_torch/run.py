@@ -7,7 +7,9 @@ video.
 Writes ``<stem>_src.mp4``, ``<stem>_vis.mp4`` and, with ``--save_npz``,
 ``<stem>_depths.npz`` ([N, H, W] float32) to ``--output_dir``. Runs on
 ``--device`` (default ``cuda``); ``--device cpu`` takes the plain PyTorch
-path. Decoding and writing need OpenCV.
+path. ``--int8`` runs the w8a8 model, its activation scales calibrated on
+the first window and kept in ``<checkpoint>.int8calib.npz``. Decoding and
+writing need OpenCV.
 """
 from __future__ import annotations
 
@@ -31,6 +33,11 @@ def parse_args(argv=None):
                         help="target fps, -1 = original")
     parser.add_argument("--fp32", action="store_true",
                         help="infer in float32 (default bfloat16)")
+    parser.add_argument("--int8", action="store_true",
+                        help="int8 encoder and motion-module linears (w8a8, "
+                             "calibrated on the first window; ops/quant.py). "
+                             "Scales persist as <checkpoint>.int8calib.npz, so "
+                             "calibration runs once per checkpoint and geometry")
     parser.add_argument("--grayscale", action="store_true",
                         help="no color palette in the depth video")
     parser.add_argument("--save_npz", action="store_true")
@@ -69,10 +76,16 @@ def main(argv=None):
     elif args.random_init:
         print("WARNING: --random_init — outputs are not meaningful depth")
         model = build_model(cfg, seed=0)
+        ckpt = None
     else:
         sys.exit(f"no checkpoint at {ckpt} (use --checkpoint or --random_init)")
 
-    pipe = VideoDepthPipeline(cfg, model, device=args.device)
+    # int8 scales persist next to the checkpoint; random weights calibrate
+    # every run.
+    calib_path = ckpt + ".int8calib.npz" if (args.int8 and ckpt) else None
+    pipe = VideoDepthPipeline(cfg, model, device=args.device,
+                              quant="int8" if args.int8 else None,
+                              calib_path=calib_path)
     frames, target_fps = read_video_frames(args.input_video, args.max_len,
                                            args.target_fps, args.max_res)
     print(f"{frames.shape[0]} frames @ {target_fps:.2f} fps, "

@@ -12,6 +12,9 @@ import numpy as np
 # range after affine alignment.
 MAX_ERR_FRAC = 0.05
 MEAN_ERR_FRAC = 0.002
+# int8-vs-fp32 budget (the JAX package's tests/test_quant.py), same terms.
+INT8_MAX_ERR_FRAC = 0.08
+INT8_MEAN_ERR_FRAC = 0.002
 
 
 def synthetic_video(n: int = 50, hw: tuple[int, int] = (70, 98),
@@ -44,3 +47,29 @@ def precision_drift_report(candidate: np.ndarray, oracle_fp32: np.ndarray) -> di
         "mean_err_frac": float(err.mean() / rng),
         "depth_range": rng,
     }
+
+
+def flip_floor_report(candidate: np.ndarray, reference: np.ndarray,
+                      floor_run: np.ndarray) -> dict:
+    """Two int8 runs on identical activation scales, held to their flip floor.
+
+    fp32 rounding that differs between the runs flips a few ``quant_act``
+    roundings by a whole step, and the flips compound through the model.
+    ``floor_run`` is the reference's own run with every absmax scaled by
+    1 + 1e-6: what flips alone do. ``candidate`` must lie within twice that
+    of ``reference`` in the aligned max and mean error (capped at the int8
+    budget) and in the unaligned relative L2 (which sees a scale or shift).
+    """
+    def measure(x):
+        d = np.asarray(x, np.float64) - np.asarray(reference, np.float64)
+        rep = precision_drift_report(x, reference)
+        rep["rel_l2"] = float(np.linalg.norm(d) / max(np.linalg.norm(reference), 1e-30))
+        rep["raw_max_err_frac"] = float(np.abs(d).max() / rep["depth_range"])
+        return rep
+
+    got, floor = measure(candidate), measure(floor_run)
+    limit = {"max_err_frac": min(2 * floor["max_err_frac"], INT8_MAX_ERR_FRAC),
+             "mean_err_frac": min(2 * floor["mean_err_frac"], INT8_MEAN_ERR_FRAC),
+             "rel_l2": 2 * floor["rel_l2"]}
+    return {"got": got, "floor": floor, "limit": limit,
+            "ok": all(got[k] < v for k, v in limit.items())}
