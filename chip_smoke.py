@@ -16,6 +16,12 @@ printing no result, without either. Phases, each fatal on failure:
   (c') K3 int8-QK spatial attention against its plain version, bf16 and
       fp32 v, at the same shapes (random int8 q and k, v a column view of
       a fused qkv), and its odd-head fallback (K1 on dequantized q, k).
+  (c'') K4 head-major attention against its plain version, bf16 and fp32:
+      head-major [32, 16, 1370, 64], split-head views of a vits fused qkv,
+      dh = 32 at [32, 12, 1370, 32] and dh = 128 with an odd head count.
+  (c''') K5 fused-qkv attention against its plain version at the vits and
+      vitl 518^2 shapes, K1's time on the same views beside it; then its
+      path (the entry called once per shape) with launch counts.
   (d) K2 temporal attention against its plain version at every motion
       module shape of vits and vitl at 518x518 and of vits at 518x686 (the
       main path's), T = 32 and T = 4.
@@ -32,6 +38,17 @@ printing no result, without either. Phases, each fatal on failure:
       is held against the card's fp32 output within the int8 drift
       budget, and the card's int8 run of the reduced clip against the CPU
       plain int8 run on the same side file.
+  (e'') a toy encoder with head dim 32 (ViTConfig(128, depth 4, 4 heads),
+      taps 0..3, vits's head widths) through VideoDepthPipeline in fp32,
+      every spatial attention on K4: launch counts read around the run,
+      the output held against the CPU plain path within 1e-3 of the range.
+  (h) K6, the fused residual conv unit: the bench tool's function
+      (tools/bench_rcu.py) at the four vitl 518^2 RefineNet shapes in bf16
+      (error against the plain version, K6 and the two-conv path timed),
+      fp32 at two smaller shapes; then the vitl RefineNet cascade at full
+      width on the taps of a 1x32x518x518 window, refinenet4 -> 1 with
+      motion modules 2 and 3 between, once with use_kernel=True (7 K6
+      launches) and once without (none), both timed and compared.
   (f) timing: one window forward at 1x32x518x518 in bf16 and in int8,
       vits and vitl, and the cached steady state per new frame for vits;
       then a torch.profiler breakdown of the vits window by kernel kind,
@@ -61,20 +78,33 @@ PEAK_INT8_OPS = 1979e12                 # dense tensor-core int8
 # bf16 rounding seen (1e-3 to 2e-3), below what a dropped key tile or one
 # head's mis-scaled softmax gives (5e-2 and up). K2 averages over at most
 # 32 frames: outputs of order 1, where a bf16 step is 4e-3 to 1.6e-2.
+# K4 and K5 compute K1's function (outputs of the same size). K6's bf16
+# output is of order 1 to 5: held to 2^-7 of the reference's max |y| (two
+# bf16 steps there; kernel and plain version round the intermediate and
+# the output at the same points, and the fp32 order of sums flips a
+# rounding now and then).
 TOL = {"spatial_attention": {"bfloat16": 4e-3, "float32": 1e-4},
        "spatial_attention_qk8": {"bfloat16": 4e-3, "float32": 1e-4},
-       "temporal_attention": {"bfloat16": 2e-2, "float32": 1e-4}}
+       "temporal_attention": {"bfloat16": 2e-2, "float32": 1e-4},
+       "attention_head_major": {"bfloat16": 4e-3, "float32": 1e-4},
+       "spatial_attention_qkv_fused": {"bfloat16": 4e-3, "float32": 1e-4},
+       "fused_rcu": {"bfloat16": "2^-7 max|y|", "float32": 1e-4}}
+
+
+def tolerance(kernel, name, ref):
+    tol = TOL[kernel][name]
+    return 2 ** -7 * ref.float().abs().max().item() if isinstance(tol, str) else tol
 
 
 def held(kernel, name, got, ref):
-    """(max abs error, its tolerance, whether it holds, and a print of the
-    error beside the reference's own size)."""
+    """(max abs error, whether it holds, and a print of the error beside
+    its tolerance and the reference's own size)."""
     import torch
 
     err = (got.float() - ref.float()).abs().max().item()
-    tol = TOL[kernel][name]
+    tol = tolerance(kernel, name, ref)
     ok = err <= tol and bool(torch.isfinite(got).all())
-    return err, ok, (f"max_abs_err {err:.3e} (tol {tol:g}; reference mean |o| "
+    return err, ok, (f"max_abs_err {err:.3e} (tol {tol:.3g}; reference mean |o| "
                      f"{ref.float().abs().mean().item():.3e}, max |o| "
                      f"{ref.float().abs().max().item():.3e})")
 
@@ -260,6 +290,243 @@ def check_k2(gen, record):
     return main
 
 
+def check_k4(gen, record):
+    """(c''): K4 at head-major and split-head shapes; returns the entry of
+    [32, 16, 1370, 64] bf16."""
+    import torch
+    import torch.nn.functional as F
+    from video_depth_anything_torch.kernels import attention_head_major as k4
+
+    main = None
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[1]
+        for label, b, h, s, d in (("head-major", 32, 16, 1370, 64),
+                                  ("vits qkv split views", 32, 6, 1370, 64),
+                                  ("head-major dh 32", 32, 12, 1370, 32),
+                                  ("head-major dh 128 odd H", 16, 5, 1370, 128)):
+            if label.startswith("vits"):
+                qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=gen).to(dt)
+                q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].unflatten(-1, (h, d)).transpose(1, 2)
+                           for i in range(3))
+            else:
+                q, k, v = (torch.randn(b, h, s, d, device="cuda", generator=gen).to(dt)
+                           for _ in range(3))
+            scale = d ** -0.5
+            got = k4.attention_head_major(q, k, v, scale=scale)
+            ref = k4.attention_head_major_plain(q, k, v, scale=scale)
+            torch.cuda.synchronize()
+            err, ok, said = held("attention_head_major", name, got, ref)
+            iters = 5 if name == "float32" else 20
+            ms = time_ms(lambda: k4.attention_head_major(q, k, v, scale=scale), iters)
+            plain = time_ms(lambda: k4.attention_head_major_plain(q, k, v, scale=scale), 3, 1)
+            lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), iters)
+            bms, by = bound_ms(4 * b * h * s * s * d, 4 * b * h * s * d * q.element_size(), name)
+            print(f"K4 {name:8s} {label:24s} [{b},{h},{s},{d}]: {said} kernel {ms:.3f} ms, "
+                  f"plain {plain:.3f} ms, sdpa {lib:.3f} ms, bound {bms:.4f} ms ({by})",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"K4 {name} {label}: {said}")
+            record("attention_head_major", name, err)
+            if name == "bfloat16" and label == "head-major":
+                main = dict(shape=[b, h, s, d], heads=h, dtype=name, ms=ms, plain_ms=plain,
+                            library_ms=lib, bound_ms=bms, bound_by=by)
+            del q, k, v, got, ref
+            torch.cuda.empty_cache()
+    return main
+
+
+def check_k5(gen, record):
+    """(c'''): K5 at the vits and vitl 518^2 shapes, then its path (the
+    entry called once per shape, launches counted); returns the entry of
+    the vits shape in bf16 and the path's launch counts."""
+    import torch
+    import torch.nn.functional as F
+    from video_depth_anything_torch import kernels
+    from video_depth_anything_torch.kernels import spatial_attention as k1
+    from video_depth_anything_torch.kernels import spatial_attention_qkv as k5
+
+    shapes = [("vits 518^2", 32, 1370, 6), ("vitl 518^2", 32, 1370, 16)]
+    main, inputs = None, []
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[1]
+        for label, b, s, h in shapes:
+            c = h * 64
+            qkv = torch.randn(b, s, 3 * c, device="cuda", generator=gen).to(dt)
+            qkv[..., :c] *= 0.125   # q pre-scaled, as the entry takes it
+            got = k5.spatial_attention_qkv_fused(qkv, num_heads=h)
+            ref = k5.spatial_attention_qkv_fused_plain(qkv, num_heads=h)
+            torch.cuda.synchronize()
+            err, ok, said = held("spatial_attention_qkv_fused", name, got, ref)
+            iters = 5 if name == "float32" else 20
+            ms = time_ms(lambda: k5.spatial_attention_qkv_fused(qkv, num_heads=h), iters)
+            plain = time_ms(lambda: k5.spatial_attention_qkv_fused_plain(qkv, num_heads=h), 3, 1)
+            q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+            k1_ms = time_ms(lambda: k1.spatial_attention(q, k, v, num_heads=h, scale=1.0), iters)
+            heads = [t.unflatten(-1, (h, 64)).transpose(1, 2) for t in (q, k, v)]
+            lib = time_ms(lambda: F.scaled_dot_product_attention(*heads, scale=1.0), iters)
+            bms, by = bound_ms(4 * b * h * s * s * 64, 4 * b * s * c * qkv.element_size(), name)
+            print(f"K5 {name:8s} {label:12s} [{b},{s},{3 * c}] H={h}: {said} kernel {ms:.3f} ms, "
+                  f"K1 on the same views {k1_ms:.3f} ms, plain {plain:.3f} ms, sdpa {lib:.3f} ms, "
+                  f"bound {bms:.4f} ms ({by})", flush=True)
+            if not ok:
+                raise AssertionError(f"K5 {name} {label}: {said}")
+            record("spatial_attention_qkv_fused", name, err)
+            if name == "bfloat16":
+                inputs.append((qkv, h))
+                if label.startswith("vits"):
+                    main = dict(shape=[b, s, 3 * c], heads=h, dtype=name, ms=ms, plain_ms=plain,
+                                library_ms=lib, bound_ms=bms, bound_by=by, k1_ms=k1_ms)
+            del got, ref, heads
+    kernels.reset_launch_counts()
+    for qkv, h in inputs:
+        k5.spatial_attention_qkv_fused(qkv, num_heads=h)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    print(f"K5 path: the fused-qkv entry at the vits and vitl shapes, bf16; launches {launches}",
+          flush=True)
+    want = {name: 0 for name in launches}
+    want["spatial_attention_qkv_fused"] = len(inputs)
+    if launches != want:
+        raise AssertionError(f"K5 path launch counts {launches}, expected {want}")
+    del inputs
+    torch.cuda.empty_cache()
+    return main, launches
+
+
+def check_k6(gen, record):
+    """(h), first part: the bench tool at the four vitl shapes in bf16,
+    fp32 at two smaller shapes; returns the entry of (32, 148, 148, 256)."""
+    import torch
+    from video_depth_anything_torch.kernels import fused_rcu as k6
+    from video_depth_anything_torch.tools import bench_rcu
+
+    rows = bench_rcu.bench(iters=10)
+    for row in rows:
+        tol = 2 ** -7 * row["ref_max_abs"]
+        if not row["max_abs_err"] <= tol:
+            raise AssertionError(f"K6 bfloat16 {row['shape']}: max_abs_err "
+                                 f"{row['max_abs_err']:.3e} over {tol:.3e}")
+        record("fused_rcu", "bfloat16", row["max_abs_err"])
+    big = rows[0]
+    with torch.no_grad():
+        # The plain version's time at the main shape (fp32 convolutions).
+        rcu = bench_rcu.random_unit(big["shape"][3], gen)
+        x = torch.randn(big["shape"], device="cuda", generator=gen).to(torch.bfloat16)
+        plain = time_ms(lambda: k6.fused_rcu_plain(x, *rcu.kernel_operands(x.dtype)), 3, 1)
+        main = dict(shape=big["shape"], dtype="bfloat16", ms=big["kernel_ms"], plain_ms=plain,
+                    library_ms=big["chain_ms"], bound_ms=big["bound_ms"],
+                    bound_by=big["bound_by"])
+        del rcu, x
+        for shape in ((2, 37, 37, 256), (4, 19, 19, 128)):
+            rcu = bench_rcu.random_unit(shape[3], gen, torch.float32)
+            x = torch.randn(shape, device="cuda", generator=gen)
+            got = rcu(x, use_kernel=True)
+            ref = k6.fused_rcu_plain(x, *rcu.kernel_operands(x.dtype))
+            torch.cuda.synchronize()
+            err, ok, said = held("fused_rcu", "float32", got, ref)
+            ms = time_ms(lambda: rcu(x, use_kernel=True), 5)
+            chain = time_ms(lambda: rcu(x), 5)
+            bms, by = bound_ms(bench_rcu.flops(shape), 2 * x.numel() * 4, "float32")
+            print(f"K6 float32 {tuple(shape)}: {said} kernel {ms:.3f} ms, two-conv path "
+                  f"{chain:.3f} ms, bound {bms:.4f} ms ({by})", flush=True)
+            if not ok:
+                raise AssertionError(f"K6 float32 {shape}: {said}")
+            record("fused_rcu", "float32", err)
+    return main
+
+
+def rcu_cascade(cardname):
+    """(h), second part: the vitl RefineNet cascade at full width on the
+    taps of one 1x32x518x518 window, with and without K6; returns the
+    launch counts of the use_kernel=True run."""
+    import numpy as np
+    import torch
+    from video_depth_anything_torch import kernels
+    from video_depth_anything_torch.config import INFER_LEN, get_model_config
+    from video_depth_anything_torch.models import build_model
+    from video_depth_anything_torch.utils.precision import MAX_ERR_FRAC, MEAN_ERR_FRAC
+
+    model = build_model(get_model_config("vitl"), seed=0, device="cuda").to(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(INFER_LEN, 518, 518, 3, device="cuda", generator=gen, dtype=torch.bfloat16)
+    head, sc = model.head, model.head.scratch
+    with torch.no_grad():
+        l1, l2, l3, l4 = head.refine_inputs(model.encode(x), 37, 37, 1, INFER_LEN)
+        del x
+
+        def cascade(use_kernel):   # DPTHeadTemporal.forward's refinenet4 -> 1
+            p4 = head.tmod(2, sc.refinenet4(l4, size=l3.shape[1:3], use_kernel=use_kernel),
+                           1, INFER_LEN)
+            p3 = head.tmod(3, sc.refinenet3(p4, l3, size=l2.shape[1:3], use_kernel=use_kernel),
+                           1, INFER_LEN)
+            p2 = sc.refinenet2(p3, l2, size=l1.shape[1:3], use_kernel=use_kernel)
+            return sc.refinenet1(p2, l1, use_kernel=use_kernel)
+
+        runs = {}
+        for use_kernel in (True, False):
+            kernels.reset_launch_counts()
+            out = cascade(use_kernel)
+            torch.cuda.synchronize()
+            runs[use_kernel] = (out.float(), kernels.launch_counts())
+        ms_k = time_ms(lambda: cascade(True), 5)
+        ms_d = time_ms(lambda: cascade(False), 5)
+    (got, launches), (ref, plain_launches) = runs[True], runs[False]
+    rng = (ref.max() - ref.min()).item()
+    d = (got - ref).abs()
+    max_frac, mean_frac = d.max().item() / rng, d.mean().item() / rng
+    rel_l2 = (torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref)).item()
+    print(f"vitl RefineNet cascade bf16, 1x32x518x518 taps -> path_1 {tuple(got.shape)} on "
+          f"{cardname}: use_kernel=True {ms_k:.2f} ms, launches {launches}; two-conv path "
+          f"{ms_d:.2f} ms, launches {plain_launches}; difference max {max_frac:.5f} / mean "
+          f"{mean_frac:.6f} of the range {rng:.4f} (bf16 budget {MAX_ERR_FRAC} / "
+          f"{MEAN_ERR_FRAC}), relative L2 {rel_l2:.3e}", flush=True)
+    if launches["fused_rcu"] != 7 or plain_launches["fused_rcu"] != 0:
+        raise AssertionError(f"cascade K6 launches {launches['fused_rcu']} (want 7) and "
+                             f"{plain_launches['fused_rcu']} (want 0)")
+    if not (np.isfinite(max_frac) and max_frac < MAX_ERR_FRAC and mean_frac < MEAN_ERR_FRAC):
+        raise AssertionError(f"cascade with K6 off the two-conv path: {max_frac}, {mean_frac}")
+    del model, runs, got, ref, l1, l2, l3, l4
+    torch.cuda.empty_cache()
+    return launches
+
+
+def head_major_path(cardname):
+    """(e''): a head-dim-32 encoder through the pipeline, fp32, on the card;
+    returns the launch counts of the run."""
+    import numpy as np
+    import torch
+    from video_depth_anything_torch import kernels
+    from video_depth_anything_torch.config import ViTConfig, get_model_config
+    from video_depth_anything_torch.models import build_model
+    from video_depth_anything_torch.pipeline import VideoDepthPipeline
+    from video_depth_anything_torch.pipeline.windows import num_windows
+    from video_depth_anything_torch.utils.precision import synthetic_video
+
+    cfg = get_model_config("vits", taps=(0, 1, 2, 3),
+                           vit_override=ViTConfig(embed_dim=128, depth=4, num_heads=4))
+    model = build_model(cfg, seed=0, device="cuda")
+    frames = synthetic_video(n=40, hw=(140, 196), seed=5)
+    n_win = num_windows(len(frames))
+    kernels.reset_launch_counts()
+    got, _ = VideoDepthPipeline(cfg, model).infer_video_depth(frames, input_size=112, fp32=True)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    ref, _ = VideoDepthPipeline(cfg, copy.deepcopy(model).to("cpu"), device="cpu"
+                                ).infer_video_depth(frames, input_size=112, fp32=True)
+    rng = float(ref.max() - ref.min())
+    err = float(np.abs(got - ref).max()) / max(rng, 1e-12)
+    print(f"head dim 32 path: ViT 128 / depth 4 / 4 heads, {len(frames)} frames 140x196 (input "
+          f"112), {n_win} windows, fp32 on {cardname}: launches {launches}; card vs CPU plain "
+          f"path max {err:.3e} of depth range {rng:.4f} (tol 1e-3)", flush=True)
+    want = {name: 0 for name in launches}
+    want.update(attention_head_major=cfg.vit.depth * n_win, temporal_attention=8 * n_win)
+    if launches != want:
+        raise AssertionError(f"head dim 32 launch counts {launches}, expected {want}")
+    if got.shape != frames.shape[:3] or not err < 1e-3:
+        raise AssertionError(f"head dim 32 path: shape {got.shape}, error {err}")
+    return launches
+
+
 def main_path(cardname):
     """(e): the port's pipeline, vits at full width, on the card."""
     import numpy as np
@@ -289,9 +556,9 @@ def main_path(cardname):
           f"launches {launches}", flush=True)
     if d16.shape != frames.shape[:3] or not np.isfinite(d16).all():
         raise AssertionError(f"bad output: shape {d16.shape}, finite {np.isfinite(d16).all()}")
-    want = {"spatial_attention": cfg.vit.depth * n_win,   # 12 per encode
-            "temporal_attention": 8 * n_win,                # 4 modules x 2 blocks
-            "spatial_attention_qk8": 0}                     # int8 only
+    want = {name: 0 for name in launches}                 # K3 int8 only, K4-K6 off
+    want.update(spatial_attention=cfg.vit.depth * n_win,   # 12 per encode
+                temporal_attention=8 * n_win)               # 4 modules x 2 blocks
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
 
@@ -356,9 +623,10 @@ def int8_path(cardname, d32):
             if d8.shape != frames.shape[:3] or not np.isfinite(d8).all():
                 raise AssertionError(f"bad int8 output: shape {d8.shape}")
             calib = not runs   # the first call runs one float forward on window 0
-            want = {"spatial_attention": depth if calib else 0,
-                    "temporal_attention": 8 * (n_win + calib),
-                    "spatial_attention_qk8": depth * n_win}
+            want = {name: 0 for name in launches}
+            want.update(spatial_attention=depth if calib else 0,
+                        temporal_attention=8 * (n_win + calib),
+                        spatial_attention_qk8=depth * n_win)
             if launches != want:
                 raise AssertionError(f"int8 launch counts {launches}, expected {want}")
             runs.append((d8, launches))
@@ -543,33 +811,54 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1 = check_k1(gen, record)
     k3 = check_k3(gen, record)
+    k4 = check_k4(gen, record)
+    k5, launches_k5 = check_k5(gen, record)
     k2 = check_k2(gen, record)
+    k6 = check_k6(gen, record)
     torch.cuda.empty_cache()
     launches, d32 = main_path(cardname)
     launches_int8 = int8_path(cardname, d32)
+    launches_k4 = head_major_path(cardname)
+    launches_k6 = rcu_cascade(cardname)
     timing(cardname)
     breakdown(cardname)
     breakdown(cardname, "int8")
 
+    # Each kernel's launches are counted on its own path: K1 and K2 on the
+    # bf16 main path, K3 on the first int8 call, K4 on the head-dim-32
+    # pipeline, K5 on its entry's own run, K6 on the vitl RefineNet cascade.
     meta = {
         "spatial_attention": dict(
             source="video_depth_anything_torch/csrc/spatial_attention.cu",
-            replaces="video_depth_anything_tpu/ops/pallas_attention.py:210", main=k1),
+            replaces="video_depth_anything_tpu/ops/pallas_attention.py:210", main=k1,
+            path=launches),
         "temporal_attention": dict(
             source="video_depth_anything_torch/csrc/temporal_attention.cu",
-            replaces="video_depth_anything_tpu/ops/pallas_temporal_attention.py:72", main=k2),
+            replaces="video_depth_anything_tpu/ops/pallas_temporal_attention.py:72", main=k2,
+            path=launches),
         "spatial_attention_qk8": dict(
             source="video_depth_anything_torch/csrc/spatial_attention_qk8.cu",
-            replaces="video_depth_anything_tpu/ops/pallas_attention.py:320", main=k3),
+            replaces="video_depth_anything_tpu/ops/pallas_attention.py:320", main=k3,
+            path=launches_int8),
+        "attention_head_major": dict(
+            source="video_depth_anything_torch/csrc/attention_head_major.cu",
+            replaces="video_depth_anything_tpu/ops/pallas_attention.py:425", main=k4,
+            path=launches_k4),
+        "spatial_attention_qkv_fused": dict(
+            source="video_depth_anything_torch/csrc/spatial_attention.cu",
+            replaces="video_depth_anything_tpu/ops/pallas_attention.py:145", main=k5,
+            path=launches_k5),
+        "fused_rcu": dict(
+            source="video_depth_anything_torch/csrc/fused_rcu.cu",
+            replaces="video_depth_anything_tpu/ops/pallas_conv.py:125", main=k6,
+            path=launches_k6),
     }
     kernels = []
     for name, m in meta.items():
         e = m["main"]
-        # K1 and K2 count the bf16 main path's launches, K3 the first int8
-        # call's (it runs on the int8 path only).
         kernels.append({
             "name": name, "route": "cuda", "source": m["source"], "replaces": m["replaces"],
-            "launches": (launches_int8 if name == "spatial_attention_qk8" else launches)[name],
+            "launches": m["path"][name],
             "launches_int8_first_call": launches_int8[name],
             "max_abs_err": max(errs[(name, "bfloat16")], errs[(name, "float32")]),
             "max_abs_err_bf16": errs[(name, "bfloat16")],
@@ -577,7 +866,7 @@ def main() -> int:
             "tolerance": TOL[name],
             "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": e["library_ms"],
-            "shape": e["shape"], "heads": e["heads"], "dtype": e["dtype"],
+            "shape": e["shape"], "heads": e.get("heads"), "dtype": e["dtype"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(cardname, flush=True)

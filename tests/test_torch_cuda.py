@@ -25,11 +25,15 @@ import pytest
 import torch
 
 from video_depth_anything_torch import kernels
-from video_depth_anything_torch.config import get_model_config
+from video_depth_anything_torch.config import ViTConfig, get_model_config
+from video_depth_anything_torch.kernels import attention_head_major as k4
+from video_depth_anything_torch.kernels import fused_rcu as k6
 from video_depth_anything_torch.kernels import spatial_attention as k1
 from video_depth_anything_torch.kernels import spatial_attention_qk8 as k3
+from video_depth_anything_torch.kernels import spatial_attention_qkv as k5
 from video_depth_anything_torch.kernels import temporal_attention as k2
 from video_depth_anything_torch.models import build_model
+from video_depth_anything_torch.models.dpt import FeatureFusionBlock
 from video_depth_anything_torch.pipeline import VideoDepthPipeline
 from video_depth_anything_torch.utils.precision import synthetic_video
 
@@ -39,6 +43,11 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
     return torch.Generator(device="cuda").manual_seed(0)
+
+
+def counts(**launched):
+    """Every kernel's launch count: 0 but for those named."""
+    return {name: launched.get(name, 0) for name in kernels.KERNELS}
 
 
 @pytest.mark.cuda
@@ -57,18 +66,28 @@ def test_kernels_match_plain_versions(card, dt, tol):
         got = k2.temporal_attention(q, k, v, num_heads=8, scale=dh ** -0.5)
         ref = k2.temporal_attention_plain(q, k, v, num_heads=8, scale=dh ** -0.5)
         assert (got.float() - ref.float()).abs().max().item() <= tol
-    assert kernels.launch_counts() == {"spatial_attention": 1, "temporal_attention": 3,
-                                       "spatial_attention_qk8": 0}
+    assert kernels.launch_counts() == counts(spatial_attention=1, temporal_attention=3)
 
 
 @pytest.mark.cuda
 def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
+    """dh = 32 is K4's now (launched, not raised); a head dim K4 does not
+    take still raises: no plain fallback on the card."""
     x = torch.zeros(2, 10, 64, device="cuda")
-    with pytest.raises(ValueError, match="head dim"):   # no plain fallback on the card
-        k1.spatial_attention(x, x, x, num_heads=2, scale=0.125)
+    kernels.reset_launch_counts()
+    k1.spatial_attention(x, x, x, num_heads=2, scale=0.125)
+    assert kernels.launch_counts() == counts(attention_head_major=1)
+    z = torch.zeros(2, 10, 136, device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        k1.spatial_attention(z, z, z, num_heads=1, scale=0.125)
     y = torch.zeros(2, 33, 64, device="cuda")
     with pytest.raises(ValueError, match="T=33"):
         k2.temporal_attention(y, y, y, num_heads=8, scale=0.125)
+    w = torch.zeros(1, 8, 8, 448, device="cuda")   # wider than a block's shared memory
+    ops = k6.kernel_weight(torch.zeros(448, 448, 3, 3, device="cuda"), w.dtype)
+    b = torch.zeros(448, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 64"):
+        k6.fused_rcu(w, ops, b, ops, b)
 
 
 @pytest.mark.cuda
@@ -85,8 +104,7 @@ def test_pipeline_on_the_card_matches_the_cpu_plain_path(card):
     frames = synthetic_video(n=30, hw=(70, 98))
     kernels.reset_launch_counts()
     got, _ = gpu.infer_video_depth(frames, input_size=56, fp32=True)
-    assert kernels.launch_counts() == {"spatial_attention": 24, "temporal_attention": 16,
-                                       "spatial_attention_qk8": 0}
+    assert kernels.launch_counts() == counts(spatial_attention=24, temporal_attention=16)
     ref, _ = cpu.infer_video_depth(frames, input_size=56, fp32=True)
     rng = float(ref.max() - ref.min())
     assert np.abs(got - ref).max() <= 1e-3 * rng
@@ -138,13 +156,12 @@ def test_int8_pipeline_on_the_card_matches_the_cpu_plain_path(card, tmp_path):
     kernels.reset_launch_counts()
     got, _ = VideoDepthPipeline(cfg, model, quant="int8", calib_path=path
                                 ).infer_video_depth(frames, input_size=112, fp32=True)
-    assert kernels.launch_counts() == {"spatial_attention": 12, "temporal_attention": 24,
-                                       "spatial_attention_qk8": 24}
+    assert kernels.launch_counts() == counts(spatial_attention=12, temporal_attention=24,
+                                             spatial_attention_qk8=24)
     kernels.reset_launch_counts()
     again, _ = VideoDepthPipeline(cfg, model, quant="int8", calib_path=path
                                   ).infer_video_depth(frames, input_size=112, fp32=True)
-    assert kernels.launch_counts() == {"spatial_attention": 0, "temporal_attention": 16,
-                                       "spatial_attention_qk8": 24}
+    assert kernels.launch_counts() == counts(temporal_attention=16, spatial_attention_qk8=24)
     np.testing.assert_array_equal(got, again)
     cpu_model = copy.deepcopy(model).to("cpu")
     ref, _ = VideoDepthPipeline(cfg, cpu_model, device="cpu", quant="int8", calib_path=path
@@ -155,3 +172,85 @@ def test_int8_pipeline_on_the_card_matches_the_cpu_plain_path(card, tmp_path):
                                   ).infer_video_depth(frames, input_size=112, fp32=True)
     rep = flip_floor_report(got, ref, floor)
     assert rep["ok"], rep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_k4_and_k5_match_plain_versions(card, dt, tol):
+    """K4 at every head-dim tile, head-major and on split-head views of a
+    fused qkv (odd H, S not a multiple of 64); K5 at dh = 64 (K1's entry)
+    and dh = 32 (K4)."""
+    kernels.reset_launch_counts()
+    for b, h, s, d in ((2, 3, 77, 8), (2, 4, 130, 32), (1, 5, 200, 64), (2, 3, 90, 128)):
+        q, k, v = (torch.randn(b, h, s, d, device="cuda", generator=card).to(dt)
+                   for _ in range(3))
+        got = k4.attention_head_major(q, k, v, scale=d ** -0.5)
+        ref = k4.attention_head_major_plain(q, k, v, scale=d ** -0.5)
+        assert got.dtype == dt and (got.float() - ref.float()).abs().max().item() <= tol
+    qkv = torch.randn(2, 150, 3 * 96, device="cuda", generator=card).to(dt)
+    q, k, v = (qkv[..., i * 96:(i + 1) * 96] for i in range(3))
+    got = k1.spatial_attention(q, k, v, num_heads=3, scale=32 ** -0.5)    # dh = 32: K4
+    ref = k4.attention_head_major_plain(*(t.unflatten(-1, (3, 32)).transpose(1, 2)
+                                          for t in (q, k, v)), scale=32 ** -0.5)
+    assert (got.float() - ref.transpose(1, 2).reshape(2, 150, 96).float()).abs().max() <= tol
+    assert kernels.launch_counts() == counts(attention_head_major=5)
+    kernels.reset_launch_counts()
+    for h, d in ((3, 64), (4, 32)):
+        qkv = torch.randn(2, 140, 3 * h * d, device="cuda", generator=card).to(dt)
+        got = k5.spatial_attention_qkv_fused(qkv, num_heads=h)
+        ref = k5.spatial_attention_qkv_fused_plain(qkv, num_heads=h)
+        assert (got.float() - ref.float()).abs().max().item() <= tol
+    assert kernels.launch_counts() == counts(spatial_attention_qkv_fused=1,
+                                             attention_head_major=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_k6_matches_plain_version_and_counts_the_opt_in(card, dt):
+    """K6 at several tiles (ragged edges, C = 128 and 256); then a fusion
+    block with use_kernel=True launches it twice (both units) and without
+    it not at all. Tolerance: fp32 1e-4; bf16 2^-7 of the max |y|."""
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.reset_launch_counts()
+    for shape in ((2, 9, 16, 128), (1, 21, 37, 256), (3, 19, 19, 128)):
+        c = shape[3]
+        w1, w2 = (k6.kernel_weight(0.05 * torch.randn(c, c, 3, 3, device="cuda", generator=card),
+                                   dt) for _ in range(2))
+        b1, b2 = (0.1 * torch.randn(c, device="cuda", generator=card) for _ in range(2))
+        x = torch.randn(shape, device="cuda", generator=card).to(dt)
+        got = k6.fused_rcu(x, w1, b1, w2, b2)
+        ref = k6.fused_rcu_plain(x, w1, b1, w2, b2)
+        tol = 1e-4 if dt == torch.float32 else 2 ** -7 * ref.float().abs().max().item()
+        assert got.dtype == dt and (got.float() - ref.float()).abs().max().item() <= tol
+    assert kernels.launch_counts() == counts(fused_rcu=3)
+    block = FeatureFusionBlock(128).to("cuda", dt)
+    x, skip = (torch.randn(2, 10, 12, 128, device="cuda", generator=card).to(dt)
+               for _ in range(2))
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = block(x, skip, size=(19, 23), use_kernel=True)
+        assert kernels.launch_counts() == counts(fused_rcu=2)
+        ref = block(x, skip, size=(19, 23))
+    assert kernels.launch_counts() == counts(fused_rcu=2)
+    rng = (ref.float().max() - ref.float().min()).item()
+    assert (got.float() - ref.float()).abs().max().item() <= (1e-4 if dt == torch.float32
+                                                              else 0.05) * rng
+
+
+@pytest.mark.cuda
+def test_head_dim_32_pipeline_on_the_card_runs_k4(card):
+    """chip_smoke.py's (e''): a head-dim-32 encoder, fp32, every spatial
+    attention on K4, against the CPU plain path within 1e-3 of the range."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_model_config("vits", taps=(0, 1, 2, 3),
+                           vit_override=ViTConfig(embed_dim=128, depth=4, num_heads=4))
+    model = build_model(cfg, seed=0, device="cuda")
+    frames = synthetic_video(n=40, hw=(140, 196), seed=5)    # 2 windows
+    kernels.reset_launch_counts()
+    got, _ = VideoDepthPipeline(cfg, model).infer_video_depth(frames, input_size=112, fp32=True)
+    assert kernels.launch_counts() == counts(attention_head_major=8, temporal_attention=16)
+    ref, _ = VideoDepthPipeline(cfg, copy.deepcopy(model).to("cpu"), device="cpu"
+                                ).infer_video_depth(frames, input_size=112, fp32=True)
+    rng = float(ref.max() - ref.min())
+    assert np.abs(got - ref).max() <= 1e-3 * rng

@@ -1,13 +1,16 @@
 """The port's attention kernels (K1 spatial, K2 temporal, K3 int8-QK
-spatial) against the JAX package: their plain versions on the CPU against
-the Pallas kernels in interpret mode and the XLA forms. The CUDA kernels
-themselves are held against these plain versions on the card by
-test_torch_cuda.py and chip_smoke.py.
+spatial, K4 head-major, K5 fused-qkv) against the JAX package: their plain
+versions on the CPU against the Pallas kernels in interpret mode and the
+XLA forms, and the routes of head dims other than 64 (K1 and K3 into K4,
+as the JAX wrappers fall back). The CUDA kernels themselves are held
+against these plain versions on the card by test_torch_cuda.py and
+chip_smoke.py.
 
 Tolerance: fp32, rtol = atol = 1e-4 (the per-op tolerance of the port); K3,
 whose scores are exact integers on both sides, 1e-5 in fp32 and 2e-2 with
 bf16 v (the probabilities round to bf16 before PV, and the TPU kernel sums
-the rounded ones for its denominator).
+the rounded ones for its denominator). K4 in bf16: 2^-7 of the reference's
+max |o|, the same two differences (q pre-scaled in bf16 on both sides).
 """
 import numpy as np
 import pytest
@@ -16,12 +19,16 @@ import torch
 import jax.numpy as jnp
 
 from video_depth_anything_tpu.ops.attention import _xla_mha, temporal_flat_attention
-from video_depth_anything_tpu.ops.pallas_attention import (flash_attention_packed,
-                                                           flash_attention_packed_qk8)
+from video_depth_anything_tpu.ops.pallas_attention import (flash_attention,
+                                                           flash_attention_packed,
+                                                           flash_attention_packed_qk8,
+                                                           flash_attention_qkv_fused)
 from video_depth_anything_tpu.ops.pallas_temporal_attention import temporal_flash_attention
 from video_depth_anything_torch import kernels
+from video_depth_anything_torch.kernels import attention_head_major as k4
 from video_depth_anything_torch.kernels import spatial_attention as k1
 from video_depth_anything_torch.kernels import spatial_attention_qk8 as k3
+from video_depth_anything_torch.kernels import spatial_attention_qkv as k5
 from video_depth_anything_torch.kernels import temporal_attention as k2
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -114,9 +121,9 @@ def test_wrapper_checks_reject_what_the_kernels_do_not_take():
         k2._check(z, z, z, num_heads=8)
 
 
-def _qk8_inputs(b, s, h, seed):
+def _qk8_inputs(b, s, h, seed, dh=64):
     rng = np.random.default_rng(seed)
-    c = h * 64
+    c = h * dh
     q8, k8 = (rng.integers(-127, 128, (b, s, c)).astype(np.int8) for _ in range(2))
     v = rng.standard_normal((b, s, c)).astype(np.float32)
     scales = np.array([0.013 * 64 ** -0.5, 0.021], np.float32)  # (amax_q/127*dh^-0.5, amax_k/127)
@@ -172,3 +179,108 @@ def test_qk8_wrapper_checks_reject_what_the_kernel_does_not_take():
         k3._check(z, z, v, sc, num_heads=2)
     with pytest.raises(ValueError, match="innermost stride"):
         k3._check(q8, q8, torch.zeros(2, 128, 10).transpose(1, 2), sc, num_heads=2)
+
+
+@pytest.mark.parametrize("b,h,s,d", [(2, 2, 130, 32), (1, 3, 77, 32), (1, 2, 100, 64),
+                                     (1, 3, 150, 64), (1, 2, 70, 128), (1, 3, 90, 128)])
+def test_head_major_plain_matches_jax(b, h, s, d):
+    q, k, v = (_rand((b, h, s, d), 30 + i) for i in range(3))
+    scale = d ** -0.5
+    kernels.reset_launch_counts()
+    got = k4.attention_head_major(*(torch.from_numpy(x) for x in (q, k, v)), scale=scale)
+    assert kernels.launch_counts()["attention_head_major"] == 0   # CPU: plain path
+    assert got.shape == (b, h, s, d)
+    pallas = flash_attention(*(jnp.asarray(x) for x in (q, k, v)), scale=scale, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
+    xla = _xla_mha(*(jnp.asarray(x) for x in (q, k, v)), scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(xla), **TOL)
+
+
+def test_head_major_plain_bf16_matches_jax_interpret():
+    """bf16 at dh = 32, where the pre-scale of q rounds (32^-0.5 is not a
+    power of two): the port rounds q * scale to bf16 as the JAX wrapper
+    does."""
+    q, k, v = (_rand((2, 3, 130, 32), 40 + i) for i in range(3))
+    got = k4.attention_head_major(*(torch.from_numpy(x).bfloat16() for x in (q, k, v)),
+                                  scale=32 ** -0.5)
+    want = np.asarray(flash_attention(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                                      scale=32 ** -0.5, interpret=True), np.float32)
+    err = np.abs(got.float().numpy() - want).max()
+    assert got.dtype == torch.bfloat16 and err <= 2 ** -7 * np.abs(want).max(), err
+
+
+def test_head_major_writes_split_head_views_in_place():
+    """K1's route for dh != 64: split-head views of [B, S, C] in and out."""
+    b, s, h, d = 2, 37, 4, 32
+    qkv = torch.from_numpy(_rand((b, s, 3 * h * d), 41))
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d] for i in range(3))
+    out = torch.empty(b, s, h * d)
+    heads = [x.reshape(b, s, h, d).transpose(1, 2) for x in (q, k, v, out)]
+    got = k4.attention_head_major(*heads[:3], scale=d ** -0.5, out=heads[3])
+    assert got is heads[3]
+    ref = k4.attention_head_major(*(x.contiguous() for x in heads[:3]), scale=d ** -0.5)
+    torch.testing.assert_close(out, ref.transpose(1, 2).reshape(b, s, h * d), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,s,h", [(2, 50, 4), (1, 130, 3)])
+def test_spatial_dh32_routes_to_head_major_as_jax(b, s, h):
+    """K1 takes dh = 64 only; dh = 32 goes to K4, as flash_attention_packed
+    falls back to flash_attention."""
+    c = h * 32
+    q, k, v = (_rand((b, s, c), 50 + i) for i in range(3))
+    kernels.reset_launch_counts()
+    got = k1.spatial_attention(*(torch.from_numpy(x) for x in (q, k, v)), num_heads=h,
+                               scale=32 ** -0.5)
+    assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
+    assert got.is_contiguous() and got.shape == (b, s, c)
+    want = flash_attention_packed(*(jnp.asarray(x) for x in (q, k, v)), num_heads=h,
+                                  scale=32 ** -0.5, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_qk8_dh32_routes_through_the_dequantized_fallback_as_jax(dtype, tol):
+    """dh = 32: q and k dequantize into spatial_attention (K4 there), as
+    flash_attention_packed_qk8 dequantizes into flash_attention_packed."""
+    q8, k8, v, scales = _qk8_inputs(2, 130, 4, 9, dh=32)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    kernels.reset_launch_counts()
+    got = k3.spatial_attention_qk8(torch.from_numpy(q8), torch.from_numpy(k8),
+                                   torch.from_numpy(v).to(dtype), torch.from_numpy(scales),
+                                   num_heads=4)
+    assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
+    want = flash_attention_packed_qk8(jnp.asarray(q8), jnp.asarray(k8), jnp.asarray(v, jdt),
+                                      jnp.asarray(scales), num_heads=4, interpret=True)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,s,h,d", [(2, 300, 6, 64), (1, 1370, 2, 64), (1, 64, 3, 64),
+                                     (1, 100, 4, 32)])
+def test_qkv_fused_plain_matches_jax(b, s, h, d):
+    """tests/test_fused_qkv_attention.py's shapes (odd heads included) and
+    a dh = 32 case (K4 in both packages); q pre-scaled in the array."""
+    c = h * d
+    q, k, v = (_rand((b, s, c), 60 + i) for i in range(3))
+    qkv = np.concatenate([q * d ** -0.5, k, v], axis=-1)
+    kernels.reset_launch_counts()
+    got = k5.spatial_attention_qkv_fused(torch.from_numpy(qkv), num_heads=h)
+    assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
+    want = flash_attention_qkv_fused(jnp.asarray(qkv), num_heads=h, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    torch.testing.assert_close(got, k5.spatial_attention_qkv_fused_plain(
+        torch.from_numpy(qkv), num_heads=h), rtol=1e-6, atol=1e-6)
+
+
+def test_head_major_check_rejects_what_k4_does_not_take():
+    x = torch.zeros(2, 3, 10, 32)
+    k4._check(x, x, x, x)
+    for d in (12, 136):             # not a multiple of 8; over 128
+        y = torch.zeros(2, 3, 10, d)
+        with pytest.raises(ValueError, match="head dims"):
+            k4._check(y, y, y, y)
+    with pytest.raises(TypeError):
+        k4._check(x.half(), x.half(), x.half(), x.half())
+    with pytest.raises(ValueError, match="innermost stride"):
+        z = torch.zeros(2, 3, 32, 10).transpose(2, 3)
+        k4._check(z, z, z, z)

@@ -6,12 +6,16 @@ them all, so a run can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
-from . import spatial_attention, spatial_attention_qk8, temporal_attention
+from . import (attention_head_major, fused_rcu, spatial_attention, spatial_attention_qk8,
+               spatial_attention_qkv, temporal_attention)
 
 KERNELS = {
     "spatial_attention": spatial_attention.spatial_attention,
     "temporal_attention": temporal_attention.temporal_attention,
     "spatial_attention_qk8": spatial_attention_qk8.spatial_attention_qk8,
+    "attention_head_major": attention_head_major.attention_head_major,
+    "spatial_attention_qkv_fused": spatial_attention_qkv.spatial_attention_qkv_fused,
+    "fused_rcu": fused_rcu.fused_rcu,
 }
 
 

@@ -4,11 +4,15 @@ Replaces the JAX package's ``ops/pallas_attention.py::
 flash_attention_packed``. The CUDA source, with the note on its bound and
 design, is ``csrc/spatial_attention.cu``.
 
-q, k, v are ``[B, S, H*64]`` views with unit innermost stride, read in
+q, k, v are ``[B, S, H*dh]`` views with unit innermost stride, read in
 place: the fused ``attn.qkv`` projection output ``[B, S, 3C]`` goes in as
 three column views with row stride 3C and no copy. The output is a
-contiguous ``[B, S, C]``. A tensor on the CPU takes the plain version; a
-CUDA tensor launches the kernel or raises.
+contiguous ``[B, S, C]``. K1 takes dh = 64 (every published encoder);
+as in the JAX package, any other head dim goes to K4
+(``kernels/attention_head_major.py``) on split-head views, writing the
+``[B, S, C]`` output in place. An odd head count at dh = 64 stays on K1,
+which runs one block per head. A tensor on the CPU takes the plain
+version; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 
 from ..ops.attention import merge_heads, mha, split_heads
 from . import build
+from .attention_head_major import attention_head_major
 
 HEAD_DIM = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -62,13 +67,9 @@ def _check(q, k, v, num_heads):
                              f"aligned start: strides {t.stride()}")
 
 
-def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      num_heads: int, scale: float) -> torch.Tensor:
-    """Multi-head attention on [B, S, H*64] -> contiguous [B, S, H*64]."""
-    if q.device.type == "cpu":
-        return spatial_attention_plain(q, k, v, num_heads=num_heads, scale=scale)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"spatial_attention runs on cuda or cpu, not {q.device}")
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, num_heads: int,
+           scale: float) -> torch.Tensor:
+    """Check the CUDA tensors and launch K1 (counted by the caller)."""
     _check(q, k, v, num_heads)
     b, s, c = q.shape
     out = torch.empty((b, s, c), dtype=q.dtype, device=q.device)
@@ -81,6 +82,31 @@ def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  float(scale), stream)
     if err != 0:
         raise RuntimeError(f"spatial_attention kernel launch failed: cudaError {err}")
+    return out
+
+
+def _head_major_route(q, k, v, num_heads, scale):
+    """dh != 64: K4 on split-head views, written into a [B, S, C] output
+    (the JAX fallback of pallas_attention.py:221-228)."""
+    if q.dim() != 3 or q.shape[2] % num_heads:
+        raise ValueError(f"q must be [B, S, C] with C divisible by num_heads="
+                         f"{num_heads}: {tuple(q.shape)}")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    attention_head_major(*(split_heads(t, num_heads) for t in (q, k, v)), scale=scale,
+                         out=split_heads(out, num_heads))
+    return out
+
+
+def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      num_heads: int, scale: float) -> torch.Tensor:
+    """Multi-head attention on [B, S, H*dh] -> contiguous [B, S, H*dh]."""
+    if q.shape[-1] != num_heads * HEAD_DIM:
+        return _head_major_route(q, k, v, num_heads, scale)
+    if q.device.type == "cpu":
+        return spatial_attention_plain(q, k, v, num_heads=num_heads, scale=scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"spatial_attention runs on cuda or cpu, not {q.device}")
+    out = launch(q, k, v, num_heads=num_heads, scale=scale)
     spatial_attention.launches += 1
     return out
 

@@ -12,9 +12,11 @@ device, ``(sq, sk)`` with the attention scale folded into sq. Per head:
     s = int32(q8 k8^T); p = exp((s - rowmax s) * sq * sk) rounded to v's
     dtype; o = p v / sum(p), fp32 accumulation.
 
-As in the JAX package, an odd head count or S > 8448 takes the fallback:
-q and k dequantized to v's dtype and K1 at scale 1. A tensor on the CPU
-takes the plain version; a CUDA tensor launches the kernel or raises.
+As in the JAX package, an odd head count, S > 8448 or a head dim other
+than 64 takes the fallback: q and k dequantized to v's dtype and
+``spatial_attention`` at scale 1 (K1, or K4 for dh != 64). A tensor on
+the CPU takes the plain version; a CUDA tensor launches the kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ def spatial_attention_qk8_plain(q8: torch.Tensor, k8: torch.Tensor, v: torch.Ten
 
 
 def _fallback(q8, k8, v, scales, num_heads):
-    """Dequantize q and k to v's dtype and run K1 at scale 1."""
+    """Dequantize q and k to v's dtype and run K1 (K4 for dh != 64) at scale 1."""
     qf = q8.to(v.dtype) * scales[0].to(v.dtype)
     kf = k8.to(v.dtype) * scales[1].to(v.dtype)
     return spatial_attention(qf, kf, v, num_heads=num_heads, scale=1.0)
@@ -93,7 +95,7 @@ def spatial_attention_qk8(q8: torch.Tensor, k8: torch.Tensor, v: torch.Tensor,
                           scales: torch.Tensor, *, num_heads: int) -> torch.Tensor:
     """int8-QK multi-head attention on [B, S, H*64] -> contiguous [B, S, H*64]
     in v's dtype."""
-    if num_heads % 2 or q8.shape[1] > MAX_S or (2 * (q8.shape[2] // num_heads)) % 128:
+    if num_heads % 2 or q8.shape[1] > MAX_S or q8.shape[2] != num_heads * HEAD_DIM:
         return _fallback(q8, k8, v, scales, num_heads)
     if q8.device.type == "cpu":
         return spatial_attention_qk8_plain(q8, k8, v, scales, num_heads=num_heads)

@@ -17,16 +17,11 @@ import ctypes
 
 import torch
 
-from ..ops.attention import mha
+from ..ops.attention import mha, scale_in
 from . import build
 
 MAX_FRAMES = 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _scale_in(dtype: torch.dtype, scale: float) -> float:
-    """The scale as the JAX code applies it: rounded to the q dtype."""
-    return float(torch.tensor(scale, dtype=dtype))
 
 
 def temporal_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -39,7 +34,7 @@ def temporal_attention_plain(q: torch.Tensor, k: torch.Tensor,
     def heads(x):
         return x.reshape(p, t, num_heads, dh).transpose(1, 2)
 
-    qs = q * _scale_in(q.dtype, scale)
+    qs = q * scale_in(q.dtype, scale)
     o = mha(heads(qs), heads(k), heads(v), 1.0)
     return o.transpose(1, 2).reshape(p, t, c)
 
@@ -87,7 +82,7 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  out.data_ptr(), p, t, num_heads, c // num_heads,
-                 _scale_in(q.dtype, scale), stream)
+                 scale_in(q.dtype, scale), stream)
     if err != 0:
         raise RuntimeError(f"temporal_attention kernel launch failed: cudaError {err}")
     temporal_attention.launches += 1

@@ -5,7 +5,8 @@ LayerScale, exact-GELU MLP, no registers, pre-norm blocks with LayerNorm
 eps 1e-6, and the +0.1 pos-embed interpolation offset. Attribute paths are
 the original checkpoint's keys (``blocks.{i}.attn.qkv`` is one fused
 Linear). Spatial attention runs kernel K1
-(``kernels/spatial_attention.py``) on the fused projection's column views.
+(``kernels/spatial_attention.py``) on the fused projection's column views;
+a head dim other than 64 goes on from there to K4, as in the JAX package.
 
 int8 mode (``ops/quant.py::quantize_encoder``): the fused qkv, proj, fc1
 and fc2 become ``QLinear`` sites, and q and k are re-quantized for kernel

@@ -6,12 +6,19 @@ upsample (a pointwise affine map commutes exactly with align-corners
 bilinear, whose weights sum to 1), the 3x3 "scratch" convs, and the output
 head with its fp32 island (fp32 input) or bf16 mixed island (bf16 input).
 All upsampling is bilinear ``align_corners=True``.
+
+``use_kernel=True`` on a residual conv unit or fusion block is the JAX
+package's ``use_pallas`` opt-in (``models/dpt.py::residual_conv_unit``):
+where ``rcu_supported`` holds (C % 128 == 0: vitb, vitl, vitg) the unit
+runs kernel K6 (``kernels/fused_rcu.py``), otherwise the two-conv path.
+The head never sets it, as the JAX head does not.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..kernels.fused_rcu import fused_rcu, kernel_weight, rcu_supported
 from ..ops import nn as vnn
 from ..ops.resize import resize_bilinear_align_corners
 
@@ -27,8 +34,22 @@ class ResidualConvUnit(nn.Module):
         super().__init__()
         self.conv1 = _conv(features, features, 3)
         self.conv2 = _conv(features, features, 3)
+        self._kernel_operands = None   # (key, w1, b1, w2, b2) for K6
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def kernel_operands(self, dtype: torch.dtype):
+        """K6's weights re-laid to [3, 3, C_out, C_in] in ``dtype`` and its
+        fp32 biases, built once and rebuilt only when a parameter changes."""
+        params = (self.conv1.weight, self.conv1.bias, self.conv2.weight, self.conv2.bias)
+        key = (dtype, *((p.data_ptr(), p._version) for p in params))
+        if self._kernel_operands is None or self._kernel_operands[0] != key:
+            w1, b1, w2, b2 = params
+            self._kernel_operands = (key, kernel_weight(w1, dtype), b1.float(),
+                                     kernel_weight(w2, dtype), b2.float())
+        return self._kernel_operands[1:]
+
+    def forward(self, x: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
+        if use_kernel and rcu_supported(x):
+            return fused_rcu(x.contiguous(), *self.kernel_operands(x.dtype))
         y = vnn.conv2d(torch.relu(x), self.conv1.weight, self.conv1.bias, padding=1)
         y = vnn.conv2d(torch.relu(y), self.conv2.weight, self.conv2.bias, padding=1)
         return y + x
@@ -42,12 +63,14 @@ class FeatureFusionBlock(nn.Module):
         self.resConfUnit2 = ResidualConvUnit(features)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor | None = None,
-                size: tuple[int, int] | None = None) -> torch.Tensor:
-        """size=None means a 2x upsample (refinenet1)."""
+                size: tuple[int, int] | None = None,
+                use_kernel: bool = False) -> torch.Tensor:
+        """size=None means a 2x upsample (refinenet1); use_kernel as the
+        residual conv units take it."""
         out = x
         if skip is not None:
-            out = out + self.resConfUnit1(skip)
-        out = self.resConfUnit2(out)
+            out = out + self.resConfUnit1(skip, use_kernel)
+        out = self.resConfUnit2(out, use_kernel)
         out = vnn.conv2d(out, self.out_conv.weight, self.out_conv.bias)
         if size is None:
             size = (2 * out.shape[1], 2 * out.shape[2])

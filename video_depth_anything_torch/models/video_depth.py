@@ -47,6 +47,28 @@ class DPTHeadTemporal(nn.Module):
         """feats: 4 x (patch tokens [B*T, P, D], cls [B*T, D]) ->
         depth [B*T, 14*ph, 14*pw, 1] fp32. With ``stats``, each motion
         module's calibration tree lands there under "0".."3"."""
+        l1, l2, l3, l4 = self.refine_inputs(feats, ph, pw, b, t, stats)
+        sc = self.scratch
+        path_4 = self.tmod(2, sc.refinenet4(l4, size=l3.shape[1:3]), b, t, stats)
+        path_3 = self.tmod(3, sc.refinenet3(path_4, l3, size=l2.shape[1:3]), b, t, stats)
+        path_2 = sc.refinenet2(path_3, l2, size=l1.shape[1:3])
+        path_1 = sc.refinenet1(path_2, l1)
+        return sc.output_head(path_1, (14 * ph, 14 * pw))
+
+    def tmod(self, i: int, feat: torch.Tensor, b: int, t: int,
+             stats: dict | None = None) -> torch.Tensor:
+        """Motion module i; with ``stats``, its calibration tree lands
+        there under str(i)."""
+        st = None
+        if stats is not None:
+            st = stats[str(i)] = {}
+        return self.motion_modules[i](feat, b, t, st)
+
+    def refine_inputs(self, feats, ph: int, pw: int, b: int, t: int,
+                      stats: dict | None = None):
+        """The taps projected, resized, through motion modules 0 and 1 and
+        the 3x3 scratch convs: the RefineNet cascade's inputs l1..l4 (NHWC,
+        ``features`` channels, 4x, 2x, 1x and 1/2x the patch grid)."""
         n, _, d = feats[0][0].shape
         g = [x.reshape(n, ph, pw, d) for x, _ in feats]
         pj, rl = self.projects, self.resize_layers
@@ -60,22 +82,9 @@ class DPTHeadTemporal(nn.Module):
         layer_4 = vnn.conv2d(project(3), rl[3].weight, rl[3].bias, stride=2,
                              padding=1)
 
-        def tmod(i, feat):
-            st = None
-            if stats is not None:
-                st = stats[str(i)] = {}
-            return self.motion_modules[i](feat, b, t, st)
-
-        layer_3 = tmod(0, layer_3)
-        layer_4 = tmod(1, layer_4)
-        sc = self.scratch
-        l1, l2, l3, l4 = sc.rn([layer_1, layer_2, layer_3, layer_4])
-
-        path_4 = tmod(2, sc.refinenet4(l4, size=l3.shape[1:3]))
-        path_3 = tmod(3, sc.refinenet3(path_4, l3, size=l2.shape[1:3]))
-        path_2 = sc.refinenet2(path_3, l2, size=l1.shape[1:3])
-        path_1 = sc.refinenet1(path_2, l1)
-        return sc.output_head(path_1, (14 * ph, 14 * pw))
+        layer_3 = self.tmod(0, layer_3, b, t, stats)
+        layer_4 = self.tmod(1, layer_4, b, t, stats)
+        return self.scratch.rn([layer_1, layer_2, layer_3, layer_4])
 
 
 class VideoDepthAnything(nn.Module):

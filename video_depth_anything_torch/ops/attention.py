@@ -1,12 +1,12 @@
-"""Plain multi-head attention, the arithmetic both attention kernels share.
+"""Plain multi-head attention, the arithmetic the attention kernels share.
 
 ``mha`` is the port's counterpart of the JAX package's ``_xla_mha``
 (ops/attention.py) in the epilogue-denominator form its kernels use:
 fp32 scores, fp32 row max and sum, unnormalised probabilities rounded to
 the value dtype for the PV product with fp32 accumulation, and the
 1/denominator applied to the [*, D] output. The kernels' plain versions
-(``kernels/spatial_attention.py``, ``kernels/temporal_attention.py``) are
-layout wrappers around it.
+(``kernels/spatial_attention.py``, ``kernels/temporal_attention.py``,
+``kernels/attention_head_major.py``) are layout wrappers around it.
 """
 from __future__ import annotations
 
@@ -21,6 +21,12 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     denom = e.sum(-1, keepdim=True).clamp_min(1e-30)
     o = torch.matmul(e.to(v.dtype).float(), v.float())
     return (o / denom).to(q.dtype)
+
+
+def scale_in(dtype: torch.dtype, scale: float) -> float:
+    """The softmax scale as the JAX code pre-scales q with it: rounded to
+    q's dtype, the product then rounded again."""
+    return float(torch.tensor(scale, dtype=dtype))
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
