@@ -49,11 +49,21 @@ printing no result, without either. Phases, each fatal on failure:
       width on the taps of a 1x32x518x518 window, refinenet4 -> 1 with
       motion modules 2 and 3 between, once with use_kernel=True (7 K6
       launches) and once without (none), both timed and compared.
+  (i) the bench tools' measurement kernels at their vitl shape (B = 32,
+      S = 1370, keys padded to 1408, H = 16, dh = 64), bf16: T1's four
+      phase probes (and qk+sm's side sum) and T3's two QK probes against
+      their plain versions on the tools' inputs, T2 under each schedule
+      against its plain version and against K1; then the tools' functions
+      (tools/bench_kernel_phases.py probes and variants,
+      tools/bench_kernel_ab.py probes, variants and others) with launch
+      counts read around them, each kernel's time beside its bound and
+      library time, and T1's qk64x2 time held to at least half of T3's
+      (the same products: less means work was dropped).
   (f) timing: one window forward at 1x32x518x518 in bf16 and in int8,
       vits and vitl, and the cached steady state per new frame for vits;
       then a torch.profiler breakdown of the vits window by kernel kind,
       bf16 and int8.
-  (g) one JSON line {"kernels": [...]}, then the card's name and power
+  (g) one JSON line {"kernels": [...]} (nine kernels), then the card's name and power
       limit, then the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -68,10 +78,13 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12               # H100 SXM, published
-PEAK_FLOPS = {"bfloat16": 989e12,       # dense tensor-core bf16
-              "float32": 67e12}         # fp32 outside the tensor cores (no TF32)
-PEAK_INT8_OPS = 1979e12                 # dense tensor-core int8
+sys.path.insert(0, ROOT)
+# The card's peak rates, bound_ms and time_ms are the bench tools' own; this
+# import fails, and the script exits non-zero, without the repository.
+from video_depth_anything_torch.tools.timing import (  # noqa: E402
+    PEAK_OPS, bound_ms, exp_ms, time_ms)
+
+PROBE_MARGIN_S = 0.05                   # marginal card time per tool timing in (i)
 # Max abs error against the plain version. The spatial kernels' outputs
 # are near-uniform averages of unit-normal v over 1370-1814 keys (mean |o|
 # about 0.03, max 0.2 to 0.7), so bf16 is held to 4e-3: a few times the
@@ -88,7 +101,17 @@ TOL = {"spatial_attention": {"bfloat16": 4e-3, "float32": 1e-4},
        "temporal_attention": {"bfloat16": 2e-2, "float32": 1e-4},
        "attention_head_major": {"bfloat16": 4e-3, "float32": 1e-4},
        "spatial_attention_qkv_fused": {"bfloat16": 4e-3, "float32": 1e-4},
-       "fused_rcu": {"bfloat16": "2^-7 max|y|", "float32": 1e-4}}
+       "fused_rcu": {"bfloat16": "2^-7 max|y|", "float32": 1e-4},
+       # T1's bf16 outputs: one bf16 step of the max (kernel and plain
+       # version accumulate in fp32 and round once), two for qk+sm (each
+       # exponential is rounded too); its side sum and T3's fp32 outputs:
+       # 1e-4 of the max (fp32 sums in another order). T2 runs on the tool's
+       # N(0, 0.3^2) inputs, where max |o| is about 0.03: 2^-6 of max |o|,
+       # two bf16 steps there (K1's 4e-3 would be 16, and would pass a T2
+       # that left the padded keys of its last tile in its denominator).
+       "phase_probes": {"bfloat16": "2^-7 max|o|; qk+sm x2 2^-6, side sum 1e-4 of the max"},
+       "qk_probes": {"bfloat16": "1e-4 max|o|"},
+       "attention_variants": {"bfloat16": "2^-6 max|o|"}}
 
 
 def tolerance(kernel, name, ref):
@@ -114,25 +137,6 @@ def card() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
-
-
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound_ms(flops: float, nbytes: float, dtype: str):
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def check_k1(gen, record):
@@ -165,7 +169,8 @@ def check_k1(gen, record):
                 bms, by = bound_ms(4 * b * h * s * s * 64, 4 * b * s * c * qq.element_size(), name)
                 print(f"K1 {name:8s} {label:20s} {layout:11s} [{b},{s},{c}] H={h}: "
                       f"{said} kernel {ms:.3f} ms, plain {plain:.3f} ms, sdpa {lib:.3f} ms, "
-                      f"bound {bms:.4f} ms ({by})", flush=True)
+                      f"bound {bms:.4f} ms ({by}; exponentials alone "
+                      f"{exp_ms(b * h * s * s):.4f} ms)", flush=True)
                 if not ok:
                     raise AssertionError(f"K1 {name} {label} {layout}: {said}")
                 record("spatial_attention", name, err)
@@ -213,12 +218,12 @@ def check_k3(gen, record):
                      for t in (q8.to(dt) * scales[0].to(dt), k8.to(dt) * scales[1].to(dt), v)]
             lib = time_ms(lambda: F.scaled_dot_product_attention(*heads, scale=1.0), iters)
             ops = 2 * b * h * s * s * 64
-            t_ops = ops / PEAK_INT8_OPS + ops / PEAK_FLOPS[name]
-            t_bytes = b * s * c * (2 + 2 * v.element_size()) / HBM_BYTES_PER_S
-            bms, by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+            # int8 QK and float PV at their own peaks, one after the other.
+            bms, by = bound_ms(ops * (1 + PEAK_OPS[name] / PEAK_OPS["int8"]),
+                               b * s * c * (2 + 2 * v.element_size()), name)
             print(f"K3 {name:8s} {label:20s} [{b},{s},{c}] H={h}: {said} kernel {ms:.3f} ms, "
-                  f"plain {plain:.3f} ms, sdpa {lib:.3f} ms, bound {bms:.4f} ms ({by})",
-                  flush=True)
+                  f"plain {plain:.3f} ms, sdpa {lib:.3f} ms, bound {bms:.4f} ms ({by}; "
+                  f"exponentials alone {exp_ms(b * h * s * s):.4f} ms)", flush=True)
             if not ok:
                 raise AssertionError(f"K3 {name} {label}: {said}, dtype {got.dtype}")
             record("spatial_attention_qk8", name, err)
@@ -278,7 +283,8 @@ def check_k2(gen, record):
                         lib = time_ms(lambda: F.scaled_dot_product_attention(*heads, scale=dh ** -0.5), 20)
                         bms, by = bound_ms(4 * p * t * t * c, 4 * p * t * c * q.element_size(), name)
                         line += (f" kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
-                                 f"bound {bms:.4f} ms ({by})")
+                                 f"bound {bms:.4f} ms ({by}; exponentials alone "
+                                 f"{exp_ms(p * 8 * t * t):.4f} ms)")
                         if name == "bfloat16" and enc == "vits 518x686" and mod == 3:
                             main = dict(shape=[p, t, c], heads=8, dtype=name, ms=ms,
                                         plain_ms=plain, library_ms=lib, bound_ms=bms,
@@ -322,8 +328,8 @@ def check_k4(gen, record):
             lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), iters)
             bms, by = bound_ms(4 * b * h * s * s * d, 4 * b * h * s * d * q.element_size(), name)
             print(f"K4 {name:8s} {label:24s} [{b},{h},{s},{d}]: {said} kernel {ms:.3f} ms, "
-                  f"plain {plain:.3f} ms, sdpa {lib:.3f} ms, bound {bms:.4f} ms ({by})",
-                  flush=True)
+                  f"plain {plain:.3f} ms, sdpa {lib:.3f} ms, bound {bms:.4f} ms ({by}; "
+                  f"exponentials alone {exp_ms(b * h * s * s):.4f} ms)", flush=True)
             if not ok:
                 raise AssertionError(f"K4 {name} {label}: {said}")
             record("attention_head_major", name, err)
@@ -367,7 +373,8 @@ def check_k5(gen, record):
             bms, by = bound_ms(4 * b * h * s * s * 64, 4 * b * s * c * qkv.element_size(), name)
             print(f"K5 {name:8s} {label:12s} [{b},{s},{3 * c}] H={h}: {said} kernel {ms:.3f} ms, "
                   f"K1 on the same views {k1_ms:.3f} ms, plain {plain:.3f} ms, sdpa {lib:.3f} ms, "
-                  f"bound {bms:.4f} ms ({by})", flush=True)
+                  f"bound {bms:.4f} ms ({by}; exponentials alone {exp_ms(b * h * s * s):.4f} ms)",
+                  flush=True)
             if not ok:
                 raise AssertionError(f"K5 {name} {label}: {said}")
             record("spatial_attention_qkv_fused", name, err)
@@ -433,6 +440,149 @@ def check_k6(gen, record):
                 raise AssertionError(f"K6 float32 {shape}: {said}")
             record("fused_rcu", "float32", err)
     return main
+
+
+def check_probes(record):
+    """(i), first part: T1, T3 and T2 at the bench tools' vitl shape in bf16
+    against their plain versions on the tools' own inputs (T2 also against
+    K1); returns the inputs and each kernel's plain time."""
+    import torch
+    from video_depth_anything_torch.kernels import attention_variants as t2
+    from video_depth_anything_torch.kernels import qk_probes as qp
+    from video_depth_anything_torch.kernels import spatial_attention as k1
+    from video_depth_anything_torch.tools import bench_kernel_phases as phases
+
+    def fail_over(label, err, tol, ref):
+        print(f"{label}: max_abs_err {err:.3e} (tol {tol:.3e}; reference max |o| "
+              f"{ref.float().abs().max().item():.3e})", flush=True)
+        if not err <= tol:
+            raise AssertionError(f"{label}: max_abs_err {err:.3e} over {tol:.3e}")
+
+    def err_of(got, ref):
+        if got.dtype != ref.dtype or got.shape != ref.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"dtype {got.dtype} / {ref.dtype}, shape {tuple(got.shape)} / "
+                                 f"{tuple(ref.shape)}, or not finite")
+        return (got.float() - ref.float()).abs().max().item()
+
+    probe_in = phases.probe_inputs()
+    q, k = probe_in["qk"]
+    plain = {}
+    t1_plain = {"qk64x2": lambda: qp.qk_first128_plain(q, k, heads=2),
+                "qk128": lambda: qp.qk_first128_plain(q, k, heads=1),
+                "qk+sm x2": lambda: qp.qk_softmax_plain(q, k),
+                "pv128x2": lambda: qp.pv_plain(*probe_in["pv"])}
+    for name, ref_fn in t1_plain.items():
+        args = probe_in["pv"] if name == "pv128x2" else (q, k)
+        if name == "qk+sm x2":
+            got, side = qp.phase_probe(name, *args, side=True)
+            ref, ref_side = ref_fn()
+            err = err_of(got, ref)
+            side_err = err_of(side, ref_side)
+            fail_over(f"T1 {name} side sum [64, 1408] fp32", side_err,
+                      1e-4 * ref_side.abs().max().item(), ref_side)
+            tol = 2 ** -6 * ref.float().abs().max().item()
+        else:
+            got, ref = qp.phase_probe(name, *args), ref_fn()
+            err = err_of(got, ref)
+            tol = 2 ** -7 * ref.float().abs().max().item()
+        torch.cuda.synchronize()
+        fail_over(f"T1 {name} {list(got.shape)} bf16", err, tol, ref)
+        record("phase_probes", "bfloat16", err)
+        plain["T1 " + name] = time_ms(ref_fn, 2, 1)
+        del got, ref
+    for name, heads in (("qk64 x2heads", 2), ("qk128 x1", 1)):
+        got = qp.qk_probe(q, k, heads=heads)
+        ref = qp.qk_colsum_plain(q, k, heads=heads)
+        torch.cuda.synchronize()
+        err = err_of(got, ref)
+        fail_over(f"T3 {name} {list(got.shape)} fp32 out", err,
+                  1e-4 * ref.abs().max().item(), ref)
+        record("qk_probes", "bfloat16", err)
+        plain["T3 " + name] = time_ms(lambda h=heads: qp.qk_colsum_plain(q, k, heads=h), 2, 1)
+        del got, ref
+    var_in = phases.variant_inputs()
+    h = phases.H
+    ref = t2.attention_variant_plain(*var_in, num_heads=h)
+    k1_out = k1.spatial_attention(*var_in, num_heads=h, scale=phases.DH ** -0.5)
+    for sched in t2.SCHEDULES:
+        got = t2.attention_variant(*var_in, num_heads=h, schedule=sched)
+        torch.cuda.synchronize()
+        err = err_of(got, ref)
+        fail_over(f"T2 {sched} {list(got.shape)} H={h} bf16 against its plain version", err,
+                  2 ** -6 * ref.float().abs().max().item(), ref)
+        fail_over(f"T2 {sched} against K1 on the same inputs", err_of(got, k1_out),
+                  2 ** -6 * k1_out.float().abs().max().item(), k1_out)
+        record("attention_variants", "bfloat16", err)
+    plain["T2"] = time_ms(lambda: t2.attention_variant_plain(*var_in, num_heads=h), 2, 1)
+    del ref, k1_out, got
+    torch.cuda.empty_cache()
+    print("plain versions, ms: " + ", ".join(f"{n} {t:.3f}" for n, t in plain.items()),
+          flush=True)
+    return dict(probes=probe_in, variants=var_in), plain
+
+
+def probe_path(cardname, inputs, plain):
+    """(i), second part: the two bench tools' functions at their vitl shape
+    (the path of T1-T3), launch counts read around them; returns the
+    kernels' entries and the counts."""
+    import torch
+    from video_depth_anything_torch import kernels
+    from video_depth_anything_torch.tools import bench_kernel_ab as ab
+    from video_depth_anything_torch.tools import bench_kernel_phases as phases
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    t1 = phases.probes(PROBE_MARGIN_S, inputs=inputs["probes"])
+    t2 = phases.variants(PROBE_MARGIN_S, inputs=inputs["variants"])
+    t3 = ab.probes(PROBE_MARGIN_S, inputs=inputs["probes"])
+    ab_prod = ab.variants(PROBE_MARGIN_S, inputs=inputs["variants"])
+    others = ab.others(PROBE_MARGIN_S)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    print(f"bench tools at B={phases.B} S={phases.S} ({phases.S_PAD}) H={phases.H} "
+          f"dh={phases.DH} bf16 on {cardname}, times warm in L2, "
+          f"{time.perf_counter() - t0:.1f} s; launches {launches}", flush=True)
+    if not all(launches[n] > 0 for n in ("phase_probes", "attention_variants", "qk_probes")):
+        raise AssertionError(f"a measurement kernel was not launched on the tools' path: "
+                             f"{launches}")
+    ratio = t1["qk64x2"]["ms"] / t3["qk64 x2heads"]["ms"]
+    print(f"T1 qk64x2 / T3 qk64 x2heads = {ratio:.3f} (the same products; at least 0.5, or "
+          f"T1's products were dropped)", flush=True)
+    if not ratio >= 0.5:
+        raise AssertionError(f"T1 qk64x2 runs at {ratio:.3f} of T3's time: work was dropped")
+    qk_main, t3_main, t2_main = t1["qk64x2"], t3["qk64 x2heads"], t2["base"]
+    entries = {
+        "phase_probes": dict(
+            shape=[phases.QK_STEPS, phases.S_PAD, 128], dtype="bfloat16", ms=qk_main["ms"],
+            plain_ms=plain["T1 qk64x2"], bound_ms=qk_main["bound_ms"],
+            bound_by=qk_main["bound_by"], library_ms=None,
+            library="none: no one PyTorch call computes the narrowed output",
+            probes={n: dict(ms=r["ms"], us_per_step=r["us_per_step"], bound_ms=r["bound_ms"],
+                            bound_by=r["bound_by"], plain_ms=plain["T1 " + n])
+                    for n, r in t1.items() if n != "derived"},
+            derived=t1["derived"], qk64x2_over_t3=ratio),
+        "attention_variants": dict(
+            shape=[phases.B, phases.S, phases.H * phases.DH], heads=phases.H, dtype="bfloat16",
+            ms=t2_main["ms"], plain_ms=plain["T2"], bound_ms=t2_main["bound_ms"],
+            bound_by=t2_main["bound_by"], library_ms=t2["sdpa"]["ms"],
+            schedules={n: dict(ms=t2[n]["ms"], err_vs_k1=t2[n]["err_vs_k1"])
+                       for n in ("base", "stagger", "kchunk")},
+            k1_ms=t2["prod"]["ms"]),
+        "qk_probes": dict(
+            shape=[phases.QK_STEPS, phases.S_PAD, 128], dtype="bfloat16", ms=t3_main["ms"],
+            plain_ms=plain["T3 qk64 x2heads"], bound_ms=t3_main["bound_ms"],
+            bound_by=t3_main["bound_by"], library_ms=None,
+            library="none: no one PyTorch call computes the column-group sums",
+            probes={n: dict(ms=t3[n]["ms"], bound_ms=t3[n]["bound_ms"],
+                            plain_ms=plain["T3 " + n]) for n in ("qk64 x2heads", "qk128 x1")},
+            ratio=t3["ratio"]),
+    }
+    print(f"tool rows, ms: K1 prod {ab_prod['prod']['ms']:.3f} (sdpa {ab_prod['sdpa']['ms']:.3f}), "
+          + ", ".join(f"{n} {r['ms']:.3f} (sdpa {r['sdpa_ms']:.3f})" for n, r in others.items()),
+          flush=True)
+    del inputs
+    torch.cuda.empty_cache()
+    return entries, launches
 
 
 def rcu_cascade(cardname):
@@ -786,8 +936,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
-    from video_depth_anything_torch.kernels import build  # fails without the repo
+    from video_depth_anything_torch.kernels import build
 
     cardname = card()
     print(f"card: {cardname}; python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -816,6 +965,9 @@ def main() -> int:
     k2 = check_k2(gen, record)
     k6 = check_k6(gen, record)
     torch.cuda.empty_cache()
+    probe_inputs, probe_plain = check_probes(record)
+    probe_entries, launches_tools = probe_path(cardname, probe_inputs, probe_plain)
+    del probe_inputs
     launches, d32 = main_path(cardname)
     launches_int8 = int8_path(cardname, d32)
     launches_k4 = head_major_path(cardname)
@@ -826,7 +978,9 @@ def main() -> int:
 
     # Each kernel's launches are counted on its own path: K1 and K2 on the
     # bf16 main path, K3 on the first int8 call, K4 on the head-dim-32
-    # pipeline, K5 on its entry's own run, K6 on the vitl RefineNet cascade.
+    # pipeline, K5 on its entry's own run, K6 on the vitl RefineNet cascade,
+    # T1-T3 on the bench tools' run. T1-T3 are bf16 only (no fp32 error).
+    bf16_only = ("phase_probes", "attention_variants", "qk_probes")
     meta = {
         "spatial_attention": dict(
             source="video_depth_anything_torch/csrc/spatial_attention.cu",
@@ -852,21 +1006,36 @@ def main() -> int:
             source="video_depth_anything_torch/csrc/fused_rcu.cu",
             replaces="video_depth_anything_tpu/ops/pallas_conv.py:125", main=k6,
             path=launches_k6),
+        "phase_probes": dict(
+            source="video_depth_anything_torch/csrc/qk_probes.cu",
+            replaces="tools/bench_kernel_phases.py:140", main=probe_entries["phase_probes"],
+            path=launches_tools),
+        "attention_variants": dict(
+            source="video_depth_anything_torch/csrc/attention_variants.cu",
+            replaces="tools/bench_kernel_phases.py:263",
+            main=probe_entries["attention_variants"], path=launches_tools),
+        "qk_probes": dict(
+            source="video_depth_anything_torch/csrc/qk_probes.cu",
+            replaces="tools/bench_kernel_ab.py:122", main=probe_entries["qk_probes"],
+            path=launches_tools),
     }
     kernels = []
     for name, m in meta.items():
         e = m["main"]
+        fp32 = None if name in bf16_only else errs[(name, "float32")]
         kernels.append({
             "name": name, "route": "cuda", "source": m["source"], "replaces": m["replaces"],
             "launches": m["path"][name],
             "launches_int8_first_call": launches_int8[name],
-            "max_abs_err": max(errs[(name, "bfloat16")], errs[(name, "float32")]),
+            "max_abs_err": max(errs[(name, "bfloat16")], fp32 or 0.0),
             "max_abs_err_bf16": errs[(name, "bfloat16")],
-            "max_abs_err_fp32": errs[(name, "float32")],
+            "max_abs_err_fp32": fp32,
             "tolerance": TOL[name],
             "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": e["library_ms"],
             "shape": e["shape"], "heads": e.get("heads"), "dtype": e["dtype"],
+            **{key: e[key] for key in ("library", "probes", "schedules", "derived",
+                                       "qk64x2_over_t3", "ratio", "k1_ms") if key in e},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(cardname, flush=True)

@@ -27,7 +27,9 @@ import torch
 from video_depth_anything_torch import kernels
 from video_depth_anything_torch.config import ViTConfig, get_model_config
 from video_depth_anything_torch.kernels import attention_head_major as k4
+from video_depth_anything_torch.kernels import attention_variants as t2
 from video_depth_anything_torch.kernels import fused_rcu as k6
+from video_depth_anything_torch.kernels import qk_probes as qp
 from video_depth_anything_torch.kernels import spatial_attention as k1
 from video_depth_anything_torch.kernels import spatial_attention_qk8 as k3
 from video_depth_anything_torch.kernels import spatial_attention_qkv as k5
@@ -254,3 +256,55 @@ def test_head_dim_32_pipeline_on_the_card_runs_k4(card):
                                 ).infer_video_depth(frames, input_size=112, fp32=True)
     rng = float(ref.max() - ref.min())
     assert np.abs(got - ref).max() <= 1e-3 * rng
+
+
+@pytest.mark.cuda
+def test_probes_match_plain_versions(card):
+    """T1's four phase probes (and the side sum of qk+sm) and T3's two QK
+    probes, bf16, 3 steps of 192 rows x 256 keys. Tolerance: one bf16 step
+    of the max |o| (2^-7 of it), two for qk+sm (it also rounds each
+    exponential); fp32 outputs and the side sum 1e-4 of the max (the fp32
+    sums run in another order)."""
+    def uniform(*shape):
+        return (torch.rand(shape, device="cuda", generator=card) - 0.5).to(torch.bfloat16)
+
+    def held(got, ref, frac):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert (got.float() - ref.float()).abs().max().item() <= frac * ref.float().abs().max().item()
+
+    q, k = uniform(3, 192, 128), uniform(3, 256, 128)
+    kernels.reset_launch_counts()
+    for name, heads in (("qk64x2", 2), ("qk128", 1)):
+        held(qp.phase_probe(name, q, k), qp.qk_first128_plain(q, k, heads=heads), 2 ** -7)
+    got, side = qp.phase_probe("qk+sm x2", q, k, side=True)
+    ref, ref_side = qp.qk_softmax_plain(q, k)
+    held(got, ref, 2 ** -6)
+    held(side, ref_side, 1e-4)
+    p, p2, v = uniform(3, 192, 256), uniform(3, 192, 256), uniform(3, 256, 128)
+    held(qp.phase_probe("pv128x2", p, p2, v), qp.pv_plain(p, p2, v), 2 ** -7)
+    for heads in (2, 1):
+        held(qp.qk_probe(q, k, heads=heads), qp.qk_colsum_plain(q, k, heads=heads), 1e-4)
+    assert kernels.launch_counts() == counts(phase_probes=4, qk_probes=2)
+    with pytest.raises(TypeError, match="bfloat16"):
+        qp.qk_probe(q.float(), k.float(), heads=2)
+
+
+@pytest.mark.cuda
+def test_t2_schedules_match_plain_version_and_k1(card):
+    """T2 under each schedule at S = 200 and 130 (ragged key tiles; an odd
+    tile count leaves kchunk's second chain one tile short), bf16, against
+    its plain version and against K1 on the same inputs, within 2^-6 of the
+    max |o| (two bf16 steps there)."""
+    kernels.reset_launch_counts()
+    for s in (200, 130):
+        q, k, v = (torch.randn(2, s, 256, device="cuda", generator=card).to(torch.bfloat16)
+                   for _ in range(3))
+        ref = t2.attention_variant_plain(q, k, v, num_heads=4).float()
+        k1_out = k1.spatial_attention(q, k, v, num_heads=4, scale=0.125).float()
+        for sched in t2.SCHEDULES:
+            got = t2.attention_variant(q, k, v, num_heads=4, schedule=sched).float()
+            assert (got - ref).abs().max().item() <= 2 ** -6 * ref.abs().max().item()
+            assert (got - k1_out).abs().max().item() <= 2 ** -6 * k1_out.abs().max().item()
+    assert kernels.launch_counts() == counts(attention_variants=6, spatial_attention=2)
+    with pytest.raises(TypeError, match="bfloat16"):
+        t2.attention_variant(q.float(), k.float(), v.float(), num_heads=4, schedule="base")

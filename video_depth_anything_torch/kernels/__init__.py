@@ -6,8 +6,9 @@ them all, so a run can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
-from . import (attention_head_major, fused_rcu, spatial_attention, spatial_attention_qk8,
-               spatial_attention_qkv, temporal_attention)
+from . import (attention_head_major, attention_variants, fused_rcu, qk_probes,
+               spatial_attention, spatial_attention_qk8, spatial_attention_qkv,
+               temporal_attention)
 
 KERNELS = {
     "spatial_attention": spatial_attention.spatial_attention,
@@ -16,6 +17,10 @@ KERNELS = {
     "attention_head_major": attention_head_major.attention_head_major,
     "spatial_attention_qkv_fused": spatial_attention_qkv.spatial_attention_qkv_fused,
     "fused_rcu": fused_rcu.fused_rcu,
+    # The measurement kernels of the bench tools (tools/bench_kernel_*.py).
+    "phase_probes": qk_probes.phase_probe,
+    "attention_variants": attention_variants.attention_variant,
+    "qk_probes": qk_probes.qk_probe,
 }
 
 

@@ -18,9 +18,10 @@ import sys
 
 import torch
 
+from . import timing
+from .timing import time_ms
+
 SHAPES = [(32, 148, 148, 256), (32, 74, 74, 256), (32, 37, 37, 256), (32, 19, 19, 256)]
-PEAK_BF16_FLOPS = 989e12    # H100 SXM, dense tensor-core bf16
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 
 
 def flops(shape) -> float:
@@ -31,22 +32,7 @@ def flops(shape) -> float:
 def bound_ms(shape, itemsize: int = 2):
     """(ms, "operations" or "bytes"): x read and y written once."""
     n, h, w, c = shape
-    t_ops, t_bytes = flops(shape) / PEAK_BF16_FLOPS, 2 * n * h * w * c * itemsize / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean ms per call over ``iters`` calls, by CUDA events, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return timing.bound_ms(flops(shape), 2 * n * h * w * c * itemsize)
 
 
 @torch.no_grad()
