@@ -9,7 +9,11 @@ printing no result, without either. Phases, each fatal on failure:
   (a) environment: card name and power limit, torch and CUDA versions;
       TF32 is switched off for matmuls and cuDNN, so fp32 phases are true
       fp32.
-  (b) build: nvcc builds every kernel from csrc/ (in parallel).
+  (b) build: nvcc builds every kernel from csrc/ (in parallel); each
+      kernel's registers and spills, and the counts of HGMMA (wgmma),
+      UTMALDG (TMA loads) and SYNCS (mbarrier) instructions in each
+      library's SASS (cuobjdump -sass). Fails if K1's, K4's or K6's library
+      lacks HGMMA or UTMALDG, or if cuobjdump is missing.
   (c) K1 spatial attention against its plain version, bf16 and fp32, at
       the encoders' shapes (strided views of a fused qkv, as the model
       passes them).
@@ -85,6 +89,10 @@ from video_depth_anything_torch.tools.timing import (  # noqa: E402
     PEAK_OPS, bound_ms, exp_ms, time_ms)
 
 PROBE_MARGIN_S = 0.05                   # marginal card time per tool timing in (i)
+# The libraries whose design is wgmma fed by TMA: each must hold both.
+SASS_REQUIRED = {"fused_rcu": ("HGMMA", "UTMALDG"),
+                 "spatial_attention": ("HGMMA", "UTMALDG"),
+                 "attention_head_major": ("HGMMA", "UTMALDG")}
 # Max abs error against the plain version. The spatial kernels' outputs
 # are near-uniform averages of unit-normal v over 1370-1814 keys (mean |o|
 # about 0.03, max 0.2 to 0.7), so bf16 is held to 4e-3: a few times the
@@ -948,9 +956,19 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(build.SOURCES)} sources", flush=True)
+    sass = {name: build.sass_counts(name) for name in build.SOURCES}
     for name, log in build.build_log().items():
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        regs = [ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln or "wgmma" in ln or "setmaxnreg" in ln]
         print(f"  {name}: " + " | ".join(regs), flush=True)
+    print("SASS (cuobjdump): " + "; ".join(
+        f"{name} " + " ".join(f"{op} {n}" for op, n in sass[name].items())
+        for name in build.SOURCES), flush=True)
+    for name, ops in SASS_REQUIRED.items():
+        missing = [op for op in ops if sass[name][op] == 0]
+        if missing:
+            raise AssertionError(f"{name}: no {', '.join(missing)} in its SASS; the design "
+                                 f"runs on wgmma and TMA")
 
     errs: dict = {}
 
@@ -1023,9 +1041,11 @@ def main() -> int:
     for name, m in meta.items():
         e = m["main"]
         fp32 = None if name in bf16_only else errs[(name, "float32")]
+        ops = sass[os.path.basename(m["source"])[:-len(".cu")]]
         kernels.append({
             "name": name, "route": "cuda", "source": m["source"], "replaces": m["replaces"],
             "launches": m["path"][name],
+            "sass": {"hgmma": ops["HGMMA"], "utmaldg": ops["UTMALDG"], "syncs": ops["SYNCS"]},
             "launches_int8_first_call": launches_int8[name],
             "max_abs_err": max(errs[(name, "bfloat16")], fp32 or 0.0),
             "max_abs_err_bf16": errs[(name, "bfloat16")],

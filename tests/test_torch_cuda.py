@@ -308,3 +308,63 @@ def test_t2_schedules_match_plain_version_and_k1(card):
     assert kernels.launch_counts() == counts(attention_variants=6, spatial_attention=2)
     with pytest.raises(TypeError, match="bfloat16"):
         t2.attention_variant(q.float(), k.float(), v.float(), num_heads=4, schedule="base")
+
+
+def _bf16_err_ok(got, ref, tol):
+    return got.dtype == ref.dtype and (got.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 19, 19, 256), (1, 37, 37, 128), (1, 21, 45, 384),
+                                   (3, 19, 19, 128), (1, 8, 16, 256), (1, 9, 17, 64)])
+def test_k6_tile_edges_match_plain_version(card, shape):
+    """The wgmma K6 in bf16 where H or W is not a multiple of the 8 x 16
+    tile, at N = 1 and N = 3 (the 2-block cluster over frames then has a
+    block past the last frame, which loads zeros and stores nothing), and at
+    C = 64, 128, 256 and 384 (128-wide passes; 64-wide at C = 64).
+    Tolerance 2^-7 of the max |y|, as chip_smoke.py holds K6."""
+    c = shape[3]
+    w1, w2 = (k6.kernel_weight(0.05 * torch.randn(c, c, 3, 3, device="cuda", generator=card),
+                               torch.bfloat16) for _ in range(2))
+    b1, b2 = (0.1 * torch.randn(c, device="cuda", generator=card) for _ in range(2))
+    x = torch.randn(shape, device="cuda", generator=card).to(torch.bfloat16)
+    kernels.reset_launch_counts()
+    got = k6.fused_rcu(x, w1, b1, w2, b2)
+    ref = k6.fused_rcu_plain(x, w1, b1, w2, b2)
+    assert kernels.launch_counts() == counts(fused_rcu=1)
+    assert _bf16_err_ok(got, ref, 2 ** -7 * ref.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 63, 65, 129, 1370])
+def test_attention_body_sequence_edges_match_plain_versions(card, s):
+    """The wgmma attention body (K1, K4, K5) in bf16 at sequence lengths
+    around its 128-row query and key tiles: K1 on the strided column views
+    of a fused qkv with an odd head count, K5 on the fused array, K4 on
+    split-head views at head dims below their tile (8 of 16, 40 of 64, 72
+    of 128) and head-major at 32. Tolerance 2e-2 (this file's bf16 bound)
+    up to 129 keys, 4e-3 at 1370 keys where the outputs are ten times
+    smaller (chip_smoke.py's bound there)."""
+    tol = 4e-3 if s > 1000 else 2e-2
+    kernels.reset_launch_counts()
+    qkv = torch.randn(2, s, 3 * 192, device="cuda", generator=card).to(torch.bfloat16)
+    q, k, v = qkv[..., :192], qkv[..., 192:384], qkv[..., 384:]
+    assert _bf16_err_ok(k1.spatial_attention(q, k, v, num_heads=3, scale=0.125),
+                        k1.spatial_attention_plain(q, k, v, num_heads=3, scale=0.125), tol)
+    qkv[..., :192] *= 0.125   # K5 takes q pre-scaled
+    assert _bf16_err_ok(k5.spatial_attention_qkv_fused(qkv, num_heads=3),
+                        k5.spatial_attention_qkv_fused_plain(qkv, num_heads=3), tol)
+    for h, d in ((5, 8), (3, 40), (3, 72)):
+        qkv = torch.randn(2, s, 3 * h * d, device="cuda", generator=card).to(torch.bfloat16)
+        q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].unflatten(-1, (h, d)).transpose(1, 2)
+                   for i in range(3))
+        out = torch.empty(2, s, h * d, device="cuda", dtype=torch.bfloat16)
+        got = k4.attention_head_major(q, k, v, scale=d ** -0.5,
+                                      out=out.unflatten(-1, (h, d)).transpose(1, 2))
+        assert _bf16_err_ok(got, k4.attention_head_major_plain(q, k, v, scale=d ** -0.5), tol)
+    q, k, v = (torch.randn(1, 5, s, 32, device="cuda", generator=card).to(torch.bfloat16)
+               for _ in range(3))
+    assert _bf16_err_ok(k4.attention_head_major(q, k, v, scale=32 ** -0.5),
+                        k4.attention_head_major_plain(q, k, v, scale=32 ** -0.5), tol)
+    assert kernels.launch_counts() == counts(spatial_attention=1, spatial_attention_qkv_fused=1,
+                                             attention_head_major=4)

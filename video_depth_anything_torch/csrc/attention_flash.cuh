@@ -1,42 +1,52 @@
-// The flash-attention body shared by K1 (spatial_attention.cu) and K4
-// (attention_head_major.cu), templated on the head-dim tile DT (16, 32, 64
-// or 128). Each .cu that includes it compiles on its own.
+// The flash-attention body shared by K1 (spatial_attention.cu), K4
+// (attention_head_major.cu) and K5 (K1's entry at scale 1), templated on the
+// head-dim tile DT (16, 32, 64 or 128). Each .cu that includes it compiles
+// on its own.
 //
 // Computes, per (batch, head): softmax(q' k^T * s_scale) v, where
 // q' = q * q_scale rounded to q's dtype (q_scale = 1 leaves q as it is),
 // with fp32 scores, fp32 row max / sum and fp32 output accumulation; the
 // unnormalised probabilities are rounded to the value dtype for the PV
-// product. q, k, v and o are read and written in place through their
-// batch, head and row strides (innermost stride 1), so one body serves the
-// packed [B, S, H*dh] layout (head stride dh), head-major [B, H, S, D]
-// tensors and split-head views of a fused projection. A head dim D below
-// the tile (D % 8 == 0) is zero-filled on load and never stored.
+// product, and the output is normalised at the end. q, k, v and o are read
+// and written in place through their batch, head and row strides (innermost
+// stride 1), so one body serves the packed [B, S, H*dh] layout (head stride
+// dh), head-major [B, H, S, D] tensors and split-head views of a fused
+// projection. A head dim D below the tile (D % 8 == 0) is zero-filled on
+// load and never stored.
 //
-// Design: each block owns one (64-query tile, head, batch) and streams
-// 64-key tiles through shared memory with an online softmax (running row
-// max m and sum l, the accumulator rescaled by exp(m_old - m_new)); each of
-// the 4 warps owns 16 query rows end to end.
-// bf16: both products run on tensor cores as mma.sync m16n8k16 with the
-// scores, the probabilities and the output accumulator in registers (the
-// FlashAttention-2 layout): a score fragment is re-packed in place as the A
-// operand of the PV product, so nothing but the K/V tiles goes through
-// shared memory. Operands come in with ldmatrix (V transposed on the fly);
-// tile pitches of DT + 8 elements keep both conflict-free. K/V tiles are
-// double buffered with cp.async (zero-filled past S and past D), so the
-// next tile's load overlaps this tile's products. Row statistics live with
-// the 4 lanes of a quad that share a row; the row sum is reduced across the
-// quad once, at the end. Exponentials are exp2 of log2(e)-prescaled scores.
-// fp32: true fp32 FMAs (no TF32), each lane owning two keys of the score
+// bf16 (attention_bf16), along FlashAttention-3's lines (Shah et al.,
+// 2024): a block owns 128 query rows of one (batch, head) and runs three
+// warpgroups. A producer warp issues TMA loads (4D tensor maps carrying the
+// batch, head and row strides, so strided views are read in place; rows
+// past S and columns past D arrive as zeros): Q once, then 128-key K and V
+// tiles into a 3-stage ring (2 at DT = 128) with full / empty mbarriers.
+// Two consumer warpgroups own 64 query rows each. Per key tile a consumer
+// issues QK^T as wgmma (A = its Q rows, B = the K tile, both K-major from
+// shared memory) together with the previous tile's PV as wgmma (A = the
+// probabilities packed to bf16 in registers, B = the V tile read MN-major
+// through the descriptor's transpose bit), then runs the online softmax on
+// the fresh scores (exp2 of log2(e)-prescaled scores, keys past S at -inf)
+// while PV runs, and rescales the accumulator once PV is done. The two
+// consumers take turns on the tensor cores through named barriers
+// (ping-pong), so one's exponentials run under the other's products. K4's
+// q pre-scale is applied once to the Q tile in shared memory, rounded to
+// bf16. Tiles use the widest swizzle their rows allow (32, 64 or 128 bytes);
+// DT = 128 is two 64-column sub-tiles. Nothing in the K loop calls
+// __syncthreads.
+// fp32 (attention_f32, the --fp32 correctness path): true fp32 FMAs (no
+// TF32), 64-query blocks of 4 warps, each lane owning two keys of the score
 // strip and DT / 32 output dims (one for DT <= 32).
 #pragma once
 
 #include <math.h>
 
 #include "attention_common.cuh"
+#include "hopper.cuh"
 
 namespace vda {
 namespace flash {
 
+// fp32 body: blocks of BQ queries, 4 warps of RW rows, BK-key tiles.
 constexpr int BQ = 64;          // query rows per block
 constexpr int BK = 64;          // keys per tile
 constexpr int WARPS = 4;        // each warp owns BQ / WARPS = 16 query rows
@@ -53,17 +63,13 @@ struct Params {
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
   float q_scale;  // applied to q in its own dtype (already rounded to it)
-  float s_scale;  // applied to the fp32 scores
+  float s_scale;  // applied to the fp32 scores; > 0
 };
 
 template <int DT>
 struct Tile {
-  static constexpr int LDB = DT + 8;   // bf16 tile pitch (elements)
   static constexpr int LDF = DT + 1;   // fp32 tile pitch: odd, so column
                                        // reads by 32 lanes hit 32 banks
-  static constexpr int TILE = BQ * LDB;
-  // Q, then K and V double buffered.
-  static constexpr size_t SMEM_BF16 = 5 * TILE * sizeof(__nv_bfloat16);
   // Q, K, V and the probability strip.
   static constexpr size_t SMEM_F32 = (3 * BQ * LDF + BQ * LDP) * sizeof(float);
 };
@@ -80,158 +86,267 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Rows [r0, r0 + 64) x DT columns of a row-strided bf16 matrix into a
-// [64][LDB] tile, asynchronously; rows past S and columns past D are zero.
-template <int DT>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
-                                                long long row_stride, int r0,
-                                                int S, int D) {
-  for (int idx = threadIdx.x; idx < BQ * (DT / 8); idx += THREADS) {
-    const int r = idx / (DT / 8), c = (idx % (DT / 8)) * 8;
-    const bool ok = r0 + r < S && c < D;
-    cp_async16(dst + r * Tile<DT>::LDB + c,
-               ok ? src + (long long)(r0 + r) * row_stride + c : src, ok);
-  }
+// ---- bf16: wgmma, TMA, warp specialisation ----
+
+// 2^x on the special-function unit (ex2.approx, flush to zero; 2^-inf = 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <int DT>
-__global__ void __launch_bounds__(THREADS) attention_bf16(const Params p) {
-  constexpr int LDB = Tile<DT>::LDB, TILE = Tile<DT>::TILE;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + TILE;       // [2][TILE]
-  __nv_bfloat16* Vs = Ks + 2 * TILE;   // [2][TILE]
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int r0 = warp * RW;
-  const int g = lane >> 2, c2 = (lane & 3) * 2;  // fragment row, column pair
+template <int DT>
+struct Wg {
+  static constexpr int BQ = 128;                    // query rows per block
+  static constexpr int BK = 128;                    // keys per tile
+  static constexpr int SW = DT * 2 < 128 ? DT * 2 : 128;  // swizzle = sub-tile row bytes
+  static constexpr int COLS = SW / 2;               // columns per sub-tile
+  static constexpr int NSUB = DT / COLS;            // sub-tiles per tile
+  static constexpr int STAGES = DT == 128 ? 2 : 3;  // K / V ring depth
+  static constexpr int Q_BYTES = BQ * DT * 2;
+  static constexpr int KV_BYTES = BK * DT * 2;
+  static constexpr int THREADS = 384;               // consumers 0, 1; producer 2
+  static constexpr int BARS = 1 + 4 * STAGES;       // q, k full / empty, v full / empty
+  static constexpr size_t SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARS;
+};
+
+struct alignas(64) TmaParams {
+  CUtensorMap q, k, v;  // dims (D, S, H, B), boxes (COLS, 128, 1, 1)
+  Params p;
+};
+
+template <int DT>
+__global__ void __launch_bounds__(384, 1) attention_bf16(const __grid_constant__ TmaParams tp) {
+  using W = Wg<DT>;
+  using namespace hopper;
+  constexpr int SW = W::SW, COLS = W::COLS, NSUB = W::NSUB, ST = W::STAGES, BK = W::BK;
+  extern __shared__ unsigned char smem_raw[];
+  // Tiles 1024-aligned (the 128-byte swizzle's atom), barriers after them.
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Qs = base;                              // NSUB x [128][SW]
+  unsigned char* Ks = Qs + W::Q_BYTES;                   // ST x NSUB x [128][SW]
+  unsigned char* Vs = Ks + ST * W::KV_BYTES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + ST * W::KV_BYTES);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* k_empty = k_full + ST;
+  uint64_t* v_full = k_empty + ST;
+  uint64_t* v_empty = v_full + ST;
+
+  const Params& p = tp.p;
   const int S = p.S, D = p.D;
-  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const int q0 = blockIdx.x * W::BQ, h = blockIdx.y, b = blockIdx.z;
+  const int ntiles = (S + BK - 1) / BK;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 2);   // one arrival per consumer warpgroup
+      mbar_init(&v_empty[s], 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: one thread issues every load ----
+    regs_dealloc<40>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, W::Q_BYTES);
+#pragma unroll
+      for (int j = 0; j < NSUB; ++j)
+        tma_load_4d(Qs + j * W::BQ * SW, &tp.q, q_full, j * COLS, q0, h, b);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % ST;
+        const uint32_t ph = (t / ST) & 1;
+        mbar_wait(&k_empty[s], ph ^ 1);
+        mbar_expect_tx(&k_full[s], W::KV_BYTES);
+#pragma unroll
+        for (int j = 0; j < NSUB; ++j)
+          tma_load_4d(Ks + s * W::KV_BYTES + j * BK * SW, &tp.k, &k_full[s], j * COLS, t * BK, h, b);
+        mbar_wait(&v_empty[s], ph ^ 1);
+        mbar_expect_tx(&v_full[s], W::KV_BYTES);
+#pragma unroll
+        for (int j = 0; j < NSUB; ++j)
+          tma_load_4d(Vs + s * W::KV_BYTES + j * BK * SW, &tp.v, &v_full[s], j * COLS, t * BK, h, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 64 ----
+  regs_alloc<232>();
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;  // accumulator row, column pair
+  const bool leader = tid == 0;                  // arrives for the warpgroup
   const float sl2 = p.s_scale * 1.4426950408889634f;  // s_scale * log2(e)
 
-  load_tile_async<DT>(Qs, qb, p.q_ss, q0, S, D);
-  load_tile_async<DT>(Ks, kb, p.k_ss, 0, S, D);
-  load_tile_async<DT>(Vs, vb, p.v_ss, 0, S, D);
-  cp_async_commit();
+  mbar_wait(q_full, 0);
+  if (p.q_scale != 1.f) {  // q * q_scale, rounded to bf16 per element, in place
+    const __nv_bfloat162 s2 = __float2bfloat162_rn(p.q_scale);
+#pragma unroll
+    for (int j = 0; j < NSUB; ++j) {
+      uint4* rows = reinterpret_cast<uint4*>(Qs + j * W::BQ * SW + wg * 64 * SW);
+      for (int i = tid; i < 64 * SW / 16; i += 128) {
+        uint4 v = rows[i];
+        __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&v);
+        x[0] = __hmul2(x[0], s2); x[1] = __hmul2(x[1], s2);
+        x[2] = __hmul2(x[2], s2); x[3] = __hmul2(x[3], s2);
+        rows[i] = v;
+      }
+    }
+    fence_async_smem();          // the scaled tile is read by wgmma
+    named_sync(3 + wg, 128);
+  }
 
-  uint32_t qf[DT / 16][4];       // A fragments of the warp's 16 Q rows
-  float acc[DT / 8][4];          // output: DT/8 dim blocks x (row g, g + 8)
+  // Descriptors: Q (A) and K (B) K-major, V (B) MN-major; k step kk of QK
+  // is 16 columns, of PV 16 keys (16 rows of the V tile).
+  const uint32_t q_addr = smem_u32(Qs) + wg * 64 * SW;
+  const uint32_t k_addr = smem_u32(Ks), v_addr = smem_u32(Vs);
+  auto qk_off = [](int kk) { return (kk * 16 / COLS) * 128 * SW + (kk * 16 % COLS) * 2; };
+
+  float s[BK / 2];                 // scores / probabilities, 64 x 128 (16 blocks of 8 keys)
+  uint32_t pa[BK / 16][4];         // the previous tile's probabilities, bf16 A fragments
+  float o[NSUB][COLS / 2];         // output, 64 x DT
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // log2 domain
+  float alpha[2];
 #pragma unroll
-  for (int n = 0; n < DT / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int j = 0; j < NSUB; ++j)
+#pragma unroll
+    for (int i = 0; i < COLS / 2; ++i) o[j][i] = 0.f;
 
-  const int ntiles = (S + BK - 1) / BK;
-  for (int t = 0; t < ntiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < ntiles) {
-      load_tile_async<DT>(Ks + (buf ^ 1) * TILE, kb, p.k_ss, (t + 1) * BK, S, D);
-      load_tile_async<DT>(Vs + (buf ^ 1) * TILE, vb, p.v_ss, (t + 1) * BK, S, D);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  auto issue_qk = [&](int stage) {
+#pragma unroll
+    for (int kk = 0; kk < DT / 16; ++kk)
+      wgmma_ss_n128<0, 0>(s, make_desc(q_addr + qk_off(kk), SW, 8 * SW, 8 * SW),
+                          make_desc(k_addr + stage * W::KV_BYTES + qk_off(kk), SW, 8 * SW, 8 * SW),
+                          kk > 0);
+    wgmma_commit();
+  };
+  auto issue_pv = [&](int stage) {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < NSUB; ++j)
+        wgmma_rs<COLS, 1>(o[j], pa[kk],
+                          make_desc(v_addr + stage * W::KV_BYTES + j * BK * SW + kk * 16 * SW,
+                                    SW, 8 * SW, 8 * SW), 1);
+    wgmma_commit();
+  };
+  auto fence_o_pa = [&]() {
+    fence_regs(o[0]);
+    if constexpr (NSUB > 1) fence_regs(o[1]);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
+  };
+  // Online softmax of tile t. Only the last tile has keys past S; they are
+  // -inf. Key t*BK < S always, so the new row max is finite. The row max
+  // is taken on the raw scores (s_scale > 0 commutes with it) and the
+  // scale folded into the exponent: p = exp2(s * s_scale * log2(e) - m).
+  // Leaves the probabilities in s and the accumulator's rescale in alpha.
+  auto softmax = [&](int t) {
+    if ((t + 1) * BK > S) {
+      const int k0 = t * BK;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + n * 8 + c2 + (e & 1) >= S) s[4 * n + e] = -INFINITY;
     }
-    __syncthreads();  // tile t (and Q) visible to every warp
-    const __nv_bfloat16* Kt = Ks + buf * TILE;
-    const __nv_bfloat16* Vt = Vs + buf * TILE;
-    if (t == 0) {
-#pragma unroll
-      for (int kk = 0; kk < DT / 16; ++kk)
-        ldsm_x4(qf[kk], Qs + (r0 + (lane & 15)) * LDB + kk * 16 + (lane >> 4) * 8);
-      if (p.q_scale != 1.f) {  // q * q_scale, rounded to bf16 per element
-        const __nv_bfloat162 s2 = __float2bfloat162_rn(p.q_scale);
-#pragma unroll
-        for (int kk = 0; kk < DT / 16; ++kk)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            __nv_bfloat162 x = *reinterpret_cast<__nv_bfloat162*>(&qf[kk][i]);
-            x = __hmul2(x, s2);
-            qf[kk][i] = *reinterpret_cast<uint32_t*>(&x);
-          }
-      }
-    }
-
-    // Scores [16 rows, 64 keys] = Q K^T: 8 key blocks of 8.
-    float s[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    if constexpr (DT % 32 == 0) {
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-        for (int kp = 0; kp < DT / 32; ++kp) {
-          uint32_t kf[4];  // B fragments of 2 k-steps (K rows = keys, non-transposed)
-          ldsm_x4(kf, Kt + (n * 8 + (lane & 7)) * LDB + kp * 32 + (lane >> 3) * 8);
-          mma_bf16(s[n], qf[2 * kp], kf[0], kf[1]);
-          mma_bf16(s[n], qf[2 * kp + 1], kf[2], kf[3]);
-        }
-      }
-    } else {  // DT == 16: one k-step; one ldmatrix.x4 serves two key blocks
-#pragma unroll
-      for (int n = 0; n < BK / 8; n += 2) {
-        uint32_t kf[4];
-        ldsm_x4(kf, Kt + ((n + (lane >> 4)) * 8 + (lane & 7)) * LDB + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[n], qf[0], kf[0], kf[1]);
-        mma_bf16(s[n + 1], qf[0], kf[2], kf[3]);
-      }
-    }
-
-    // Online softmax; the ragged key edge is -inf. Key t*BK < S always, so
-    // the new row max is finite.
-    const int k0 = t * BK;
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = k0 + n * 8 + c2 + (e & 1) < S;
-        s[n][e] = ok ? s[n][e] * sl2 : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
+      mx[0] = fmaxf(mx[0], fmaxf(s[4 * n], s[4 * n + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[4 * n + 2], s[4 * n + 3]));
     }
-    float alpha[2];
+    float neg[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const float mn = fmaxf(m[i], quad_max(mx[i]));
-      alpha[i] = exp2f(m[i] - mn);  // exp2(-inf) = 0 on the first tile
+      const float mn = fmaxf(m[i], quad_max(mx[i]) * sl2);
+      alpha[i] = fast_exp2(m[i] - mn);  // exp2(-inf) = 0 on the first tile
       m[i] = mn;
       l[i] *= alpha[i];
+      neg[i] = -mn;
     }
 #pragma unroll
     for (int n = 0; n < BK / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[n][e] = exp2f(s[n][e] - m[e >> 1]);
-        l[e >> 1] += s[n][e];  // this lane's part of the row sum
+        s[4 * n + e] = fast_exp2(fmaf(s[4 * n + e], sl2, neg[e >> 1]));
+        l[e >> 1] += s[4 * n + e];  // this lane's part of the row sum
       }
     }
-#pragma unroll
-    for (int n = 0; n < DT / 8; ++n) {
-      acc[n][0] *= alpha[0]; acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1]; acc[n][3] *= alpha[1];
-    }
-
-    // Output [16, DT] += P [16, 64 keys] V [64 keys, DT]: the score
-    // fragments of key blocks 2kk and 2kk + 1 are the A fragment of k-step kk.
+  };
+  // The probabilities of key blocks 2kk, 2kk + 1 are the A fragment of
+  // PV's k step kk.
+  auto pack_p = [&]() {
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int np = 0; np < DT / 16; ++np) {
-        uint32_t vf[4];  // B fragments of dim blocks 2np, 2np + 1 (V transposed)
-        ldsm_x4_trans(vf, Vt + (kk * 16 + (lane & 15)) * LDB + np * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * np], pa, vf[0], vf[1]);
-        mma_bf16(acc[2 * np + 1], pa, vf[2], vf[3]);
-      }
+      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
     }
-    __syncthreads();  // every warp is done with this buffer before it refills
+  };
+
+  // Consumer 1 lets consumer 0 take the tensor cores first; each then
+  // hands them over once its products of a tile are issued.
+  if (wg == 1) named_arrive(1, 256);
+
+  // Tile 0: QK alone.
+  mbar_wait(&k_full[0], 0);
+  named_sync(1 + wg, 256);
+  fence_regs(s);
+  wgmma_fence();
+  issue_qk(0);
+  if (wg == 0 || ntiles > 1) named_arrive(2 - wg, 256);
+  wgmma_wait<0>();
+  fence_regs(s);
+  if (leader) mbar_arrive(&k_empty[0]);
+  softmax(0);
+  pack_p();
+
+  // Tile t: QK of t and PV of t - 1 in flight together; t's softmax runs
+  // while PV does.
+  for (int t = 1; t < ntiles; ++t) {
+    const int s_k = t % ST, s_v = (t - 1) % ST;
+    mbar_wait(&k_full[s_k], (t / ST) & 1);
+    mbar_wait(&v_full[s_v], ((t - 1) / ST) & 1);
+    named_sync(1 + wg, 256);       // this consumer's turn
+    fence_regs(s);
+    fence_o_pa();
+    wgmma_fence();
+    issue_qk(s_k);
+    issue_pv(s_v);
+    if (wg == 0 || t + 1 < ntiles) named_arrive(2 - wg, 256);   // the other's turn
+    wgmma_wait<1>();               // QK done, PV may run on
+    fence_regs(s);
+    if (leader) mbar_arrive(&k_empty[s_k]);
+    softmax(t);
+    wgmma_wait<0>();               // PV of t - 1 done: free its V stage, rescale
+    fence_o_pa();
+    if (leader) mbar_arrive(&v_empty[s_v]);
+#pragma unroll
+    for (int j = 0; j < NSUB; ++j)
+#pragma unroll
+      for (int i = 0; i < COLS / 2; ++i) o[j][i] *= alpha[(i >> 1) & 1];
+    pack_p();
+  }
+
+  // The last tile's PV.
+  {
+    const int s_v = (ntiles - 1) % ST;
+    mbar_wait(&v_full[s_v], ((ntiles - 1) / ST) & 1);
+    fence_o_pa();
+    wgmma_fence();
+    issue_pv(s_v);
+    wgmma_wait<0>();
+    fence_o_pa();
   }
 
   // Every lane shuffles before any lane skips a row past S.
@@ -240,14 +355,16 @@ __global__ void __launch_bounds__(THREADS) attention_bf16(const Params p) {
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh + c2;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = q0 + r0 + g + 8 * i;
+    const int row = q0 + wg * 64 + warp * 16 + g + 8 * i;
     if (row >= S) continue;
     __nv_bfloat16* orow = ob + row * p.o_ss;
 #pragma unroll
-    for (int n = 0; n < DT / 8; ++n)
-      if (n * 8 < D)
-        *reinterpret_cast<uint32_t*>(orow + n * 8) =
-            pack_bf16(acc[n][2 * i] * inv[i], acc[n][2 * i + 1] * inv[i]);
+    for (int j = 0; j < NSUB; ++j)
+#pragma unroll
+      for (int n = 0; n < COLS / 8; ++n)
+        if (j * COLS + n * 8 < D)
+          *reinterpret_cast<uint32_t*>(orow + j * COLS + n * 8) =
+              pack_bf16(o[j][4 * n + 2 * i] * inv[i], o[j][4 * n + 2 * i + 1] * inv[i]);
   }
 }
 
@@ -379,22 +496,37 @@ __global__ void __launch_bounds__(THREADS) attention_f32(const Params p) {
 }
 
 // dtype: 0 = fp32, 1 = bf16. Grid (query tiles, H, B); returns the
-// cudaError_t of the launch (0 on success); does not synchronise.
+// cudaError_t of the launch (0 on success; cudaErrorInvalidValue if
+// cuTensorMapEncodeTiled refuses a tensor map); does not synchronise.
 template <int DT>
 int launch(int dtype, const Params& p, int B, int H, cudaStream_t st) {
-  const dim3 grid((p.S + BQ - 1) / BQ, H, B);
   cudaError_t err;
   if (dtype == 1) {
-    err = cudaFuncSetAttribute(attention_bf16<DT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)Tile<DT>::SMEM_BF16);
+    using W = Wg<DT>;
+    TmaParams tp;
+    tp.p = p;
+    const void* ptrs[3] = {p.q, p.k, p.v};
+    const long long strides[3][3] = {{p.q_ss, p.q_sh, p.q_sb}, {p.k_ss, p.k_sh, p.k_sb},
+                                     {p.v_ss, p.v_sh, p.v_sb}};
+    CUtensorMap* maps[3] = {&tp.q, &tp.k, &tp.v};
+    const uint64_t dims[4] = {(uint64_t)p.D, (uint64_t)p.S, (uint64_t)H, (uint64_t)B};
+    const uint32_t box[4] = {(uint32_t)W::COLS, 128u, 1u, 1u};
+    for (int i = 0; i < 3; ++i) {
+      const int64_t str[3] = {strides[i][0], strides[i][1], strides[i][2]};
+      if (!hopper::make_map(maps[i], ptrs[i], 4, dims, str, box, W::SW))
+        return (int)cudaErrorInvalidValue;
+    }
+    err = cudaFuncSetAttribute(attention_bf16<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)W::SMEM);
     if (err != cudaSuccess) return (int)err;
-    attention_bf16<DT><<<grid, THREADS, Tile<DT>::SMEM_BF16, st>>>(p);
+    const dim3 grid((p.S + W::BQ - 1) / W::BQ, H, B);
+    attention_bf16<DT><<<grid, W::THREADS, W::SMEM, st>>>(tp);
   } else if (dtype == 0) {
     err = cudaFuncSetAttribute(attention_f32<DT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)Tile<DT>::SMEM_F32);
     if (err != cudaSuccess) return (int)err;
+    const dim3 grid((p.S + BQ - 1) / BQ, H, B);
     attention_f32<DT><<<grid, THREADS, Tile<DT>::SMEM_F32, st>>>(p);
   } else {
     return (int)cudaErrorInvalidValue;

@@ -17,10 +17,11 @@
 // 64 or 128, and the padded columns cost products the bound does not count.
 //
 // Design: K1's body (attention_flash.cuh) instantiated per head-dim tile:
-// 64-key tiles streamed through shared memory with an online softmax, so
-// any S is taken (the TPU kernel keeps S resident and hands S > 8448 to
-// XLA); columns past D are zero-filled by cp.async and never stored.
-// Not yet: wgmma, TMA, warp specialisation.
+// 128-key tiles streamed by TMA through a shared-memory ring into wgmma
+// with an online softmax, so any S is taken (the TPU kernel keeps S
+// resident and hands S > 8448 to XLA); columns past D arrive zero-filled
+// from the tensor maps and are never stored; q's pre-scale is applied once
+// to the Q tile in shared memory, rounded to bf16.
 
 #include "attention_flash.cuh"
 

@@ -16,10 +16,12 @@
 //
 // Design: the TPU kernel keeps all of S resident and runs a one-pass
 // softmax; here K and V for one head at S = 1370 would not fit a block's
-// shared memory, so the body (attention_flash.cuh, shared with K4 at head
-// dim tile 64) streams 64-key tiles with an online softmax, bf16 on
-// mma.sync m16n8k16 with scores and accumulator in registers, fp32 on FMAs.
-// Not yet: wgmma, TMA, warp specialisation.
+// shared memory, so the body (attention_flash.cuh, shared with K4 and K5)
+// streams 128-key tiles with an online softmax. bf16: 128-query blocks,
+// a TMA producer feeding a K / V ring, two consumer warpgroups on wgmma
+// that take turns on the tensor cores (one's exponentials under the
+// other's products); the strided column views of the fused qkv are read in
+// place through the tensor maps. fp32: FMAs.
 
 #include "attention_flash.cuh"
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -89,3 +90,20 @@ def library(name: str) -> ctypes.CDLL:
 def build_log() -> dict[str, str]:
     """nvcc output of this process's builds (register and smem use)."""
     return dict(_LOG)
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS")   # wgmma, TMA loads, mbarrier operations
+
+
+def sass_counts(name: str) -> dict[str, int]:
+    """Counts of Hopper instructions in a built library's SASS (cuobjdump
+    -sass, beside nvcc). Raises KernelBuildError if cuobjdump is missing or
+    fails: the count is evidence, never skipped."""
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        raise KernelBuildError(f"cuobjdump not found beside nvcc: {cuobjdump}")
+    build_all()
+    proc = subprocess.run([cuobjdump, "-sass", _target(name)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise KernelBuildError(f"cuobjdump -sass {name}: {proc.stderr[-2000:]}")
+    return {op: len(re.findall(rf"\b{op}\b", proc.stdout)) for op in SASS_OPS}

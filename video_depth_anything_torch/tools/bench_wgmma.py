@@ -1,0 +1,138 @@
+"""Card microbench of the wgmma kernels: K1, K4 and K5 (the attention body
+``csrc/attention_flash.cuh``) and K6 (``csrc/fused_rcu.cu``) at the shapes
+of PERF.md's kernel table, each beside one PyTorch call of the same
+function and its bound.
+
+    python -m video_depth_anything_torch.tools.bench_wgmma [--label L] [--json PATH]
+
+Imports are absolute and touch only the kernels' wrappers and the shared
+timing module, so the same file times an older checkout of the package:
+run it from that checkout's root as ``python /path/to/bench_wgmma.py``,
+and the checkout's own kernels are built and timed. To compare two trees
+on one card, run old, new, new, old in one session.
+
+Per shape it prints (and writes as JSON lines) the kernel's ms (mean of a
+run of launches between CUDA events, warm in L2), the library call's ms
+(SDPA; K6: relu, cuDNN conv, relu, cuDNN conv, add), the bound (the larger
+of the operations at the bf16 tensor-core peak and the bytes at the HBM
+rate) and the max abs error against the plain version. bf16 throughout.
+Needs a CUDA card and exits 2 without one.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import torch
+import torch.nn.functional as F
+
+if __package__ in (None, ""):   # run by path: the package of the working directory
+    sys.path.insert(0, os.getcwd())
+
+from video_depth_anything_torch.tools.timing import bound_ms, card_line, time_ms  # noqa: E402
+
+ITERS = 20
+K1_SHAPES = [("main 518x686 cached", 22, 1814, 6), ("vits 518^2", 32, 1370, 6),
+             ("vitl 518^2", 32, 1370, 16)]
+K4_SHAPES = [("dh 64", 32, 16, 1370, 64), ("dh 32", 32, 12, 1370, 32),
+             ("dh 128 odd H", 16, 5, 1370, 128)]
+K5_SHAPES = [("vits 518^2", 32, 1370, 6), ("vitl 518^2", 32, 1370, 16)]
+K6_SHAPES = [(32, 148, 148, 256), (32, 74, 74, 256), (32, 37, 37, 256), (32, 19, 19, 256)]
+
+
+def _err(got, ref) -> float:
+    return (got.float() - ref.float()).abs().max().item()
+
+
+def _row(kernel, label, shape, ms, lib, ops, nbytes, err):
+    bms, by = bound_ms(ops, nbytes)
+    return dict(kernel=kernel, label=label, shape=list(shape), ms=ms, library_ms=lib,
+                bound_ms=bms, bound_by=by, max_abs_err=err)
+
+
+@torch.no_grad()
+def bench(gen: torch.Generator) -> list[dict]:
+    from video_depth_anything_torch.kernels import attention_head_major as k4
+    from video_depth_anything_torch.kernels import fused_rcu as k6
+    from video_depth_anything_torch.kernels import spatial_attention as k1
+    from video_depth_anything_torch.kernels import spatial_attention_qkv as k5
+    from video_depth_anything_torch.tools import bench_rcu
+
+    dt = torch.bfloat16
+    rows = []
+    for label, b, s, h in K1_SHAPES:
+        c = h * 64
+        qkv = torch.randn(b, s, 3 * c, device="cuda", generator=gen).to(dt)
+        q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+        err = _err(k1.spatial_attention(q, k, v, num_heads=h, scale=0.125),
+                   k1.spatial_attention_plain(q, k, v, num_heads=h, scale=0.125))
+        ms = time_ms(lambda: k1.spatial_attention(q, k, v, num_heads=h, scale=0.125), ITERS)
+        heads = [t.unflatten(-1, (h, 64)).transpose(1, 2) for t in (q, k, v)]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(*heads, scale=0.125), ITERS)
+        rows.append(_row("K1", label, [b, s, c], ms, lib, 4 * b * h * s * s * 64, 8 * b * s * c, err))
+        del qkv, q, k, v, heads
+    for label, b, h, s, d in K4_SHAPES:
+        q, k, v = (torch.randn(b, h, s, d, device="cuda", generator=gen).to(dt) for _ in range(3))
+        err = _err(k4.attention_head_major(q, k, v, scale=d ** -0.5),
+                   k4.attention_head_major_plain(q, k, v, scale=d ** -0.5))
+        ms = time_ms(lambda: k4.attention_head_major(q, k, v, scale=d ** -0.5), ITERS)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5), ITERS)
+        rows.append(_row("K4", label, [b, h, s, d], ms, lib, 4 * b * h * s * s * d,
+                         8 * b * h * s * d, err))
+        del q, k, v
+    for label, b, s, h in K5_SHAPES:
+        c = h * 64
+        qkv = torch.randn(b, s, 3 * c, device="cuda", generator=gen).to(dt)
+        qkv[..., :c] *= 0.125
+        err = _err(k5.spatial_attention_qkv_fused(qkv, num_heads=h),
+                   k5.spatial_attention_qkv_fused_plain(qkv, num_heads=h))
+        ms = time_ms(lambda: k5.spatial_attention_qkv_fused(qkv, num_heads=h), ITERS)
+        heads = [t.unflatten(-1, (h, 64)).transpose(1, 2)
+                 for t in (qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:])]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(*heads, scale=1.0), ITERS)
+        rows.append(_row("K5", label, [b, s, 3 * c], ms, lib, 4 * b * h * s * s * 64,
+                         8 * b * s * c, err))
+        del qkv, heads
+    for shape in K6_SHAPES:
+        rcu = bench_rcu.random_unit(shape[3], gen)
+        x = torch.randn(shape, device="cuda", generator=gen).to(dt)
+        ops = rcu.kernel_operands(x.dtype)
+        err = _err(k6.fused_rcu(x, *ops), k6.fused_rcu_plain(x, *ops))
+        ms = time_ms(lambda: k6.fused_rcu(x, *ops), 10)
+        lib = time_ms(lambda: rcu(x), 10)
+        rows.append(_row("K6", f"{shape[1]}^2", shape, ms, lib, bench_rcu.flops(shape),
+                         4 * x.numel(), err))
+        del rcu, x, ops
+    torch.cuda.empty_cache()
+    return rows
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--label", default="", help="a name for this run in its output")
+    parser.add_argument("--json", default=None, help="append the rows as JSON lines here")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("bench_wgmma: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    rows = bench(torch.Generator(device="cuda").manual_seed(0))
+    for r in rows:
+        r.update(run=args.label, card=card)
+        print(f"[{args.label}] {r['kernel']} {r['label']:20s} {r['shape']}: kernel "
+              f"{r['ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), max abs err {r['max_abs_err']:.3e}", flush=True)
+    if args.json:
+        with open(args.json, "a") as f:
+            for r in rows:
+                f.write(json.dumps(r) + "\n")
+    print(f"[{args.label}] on {card}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
