@@ -10,10 +10,11 @@ printing no result, without either. Phases, each fatal on failure:
       TF32 is switched off for matmuls and cuDNN, so fp32 phases are true
       fp32.
   (b) build: nvcc builds every kernel from csrc/ (in parallel); each
-      kernel's registers and spills, and the counts of HGMMA (wgmma),
-      UTMALDG (TMA loads) and SYNCS (mbarrier) instructions in each
-      library's SASS (cuobjdump -sass). Fails if K1's, K4's or K6's library
-      lacks HGMMA or UTMALDG, or if cuobjdump is missing.
+      kernel's registers and spills, and the counts of HGMMA (bf16 wgmma),
+      IGMMA (int8 wgmma), HMMA (mma.sync), UTMALDG (TMA loads) and SYNCS
+      (mbarrier) instructions in each library's SASS (cuobjdump -sass).
+      Fails if K1's, K4's or K6's library lacks HGMMA or UTMALDG, K3's
+      IGMMA or UTMALDG, K2's HMMA, or if cuobjdump is missing.
   (c) K1 spatial attention against its plain version, bf16 and fp32, at
       the encoders' shapes (strided views of a fused qkv, as the model
       passes them).
@@ -28,7 +29,9 @@ printing no result, without either. Phases, each fatal on failure:
       path (the entry called once per shape) with launch counts.
   (d) K2 temporal attention against its plain version at every motion
       module shape of vits and vitl at 518x518 and of vits at 518x686 (the
-      main path's), T = 32 and T = 4.
+      main path's), T = 32 and T = 4; its times (and SDPA's) replayed from
+      a CUDA graph, as the smaller shapes take less card time than the
+      host needs to launch them.
   (e) the main path: VideoDepthPipeline.infer_video_depth, vits at full
       width with seeded random weights, on a 100-frame 480x640 synthetic
       video (5 windows at 518x686), bf16 with the keyframe cache. Launch
@@ -85,14 +88,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 # The card's peak rates, bound_ms and time_ms are the bench tools' own; this
 # import fails, and the script exits non-zero, without the repository.
+from video_depth_anything_torch.tools.bench_wgmma import graph_ms  # noqa: E402
 from video_depth_anything_torch.tools.timing import (  # noqa: E402
     PEAK_OPS, bound_ms, exp_ms, time_ms)
 
 PROBE_MARGIN_S = 0.05                   # marginal card time per tool timing in (i)
-# The libraries whose design is wgmma fed by TMA: each must hold both.
+# The instructions each library's design rests on: wgmma fed by TMA (bf16
+# HGMMA; K3's int8 QK, IGMMA), K2's tensor-core products (HMMA).
 SASS_REQUIRED = {"fused_rcu": ("HGMMA", "UTMALDG"),
                  "spatial_attention": ("HGMMA", "UTMALDG"),
-                 "attention_head_major": ("HGMMA", "UTMALDG")}
+                 "attention_head_major": ("HGMMA", "UTMALDG"),
+                 "spatial_attention_qk8": ("IGMMA", "UTMALDG"),
+                 "temporal_attention": ("HMMA",)}
 # Max abs error against the plain version. The spatial kernels' outputs
 # are near-uniform averages of unit-normal v over 1370-1814 keys (mean |o|
 # about 0.03, max 0.2 to 0.7), so bf16 is held to 4e-3: a few times the
@@ -285,10 +292,12 @@ def check_k2(gen, record):
                     err, ok, said = held("temporal_attention", name, got, ref)
                     line = f"K2 {name:8s} {enc:12s} module {mod} [{p},{t},{c}] dh={dh}: {said}"
                     if t == 32:
-                        ms = time_ms(lambda: k2.temporal_attention(q, k, v, num_heads=8, scale=dh ** -0.5), 20)
+                        # Replayed from a CUDA graph: the smaller shapes take
+                        # less card time than the host needs to launch them.
+                        ms = graph_ms(lambda: k2.temporal_attention(q, k, v, num_heads=8, scale=dh ** -0.5), 20)
                         plain = time_ms(lambda: k2.temporal_attention_plain(q, k, v, num_heads=8, scale=dh ** -0.5), 5, 1)
                         heads = [x.unflatten(-1, (8, dh)).transpose(1, 2) for x in (q, k, v)]
-                        lib = time_ms(lambda: F.scaled_dot_product_attention(*heads, scale=dh ** -0.5), 20)
+                        lib = graph_ms(lambda: F.scaled_dot_product_attention(*heads, scale=dh ** -0.5), 20)
                         bms, by = bound_ms(4 * p * t * t * c, 4 * p * t * c * q.element_size(), name)
                         line += (f" kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
                                  f"bound {bms:.4f} ms ({by}; exponentials alone "
@@ -919,9 +928,10 @@ def breakdown(cardname, mode="bf16"):
         return
     # First match wins: cuDNN's convolutions are named "..._implicit_gemm",
     # and cuBLAS's Hopper GEMMs "nvjet_...".
-    kinds = (("K3 spatial_attention_qk8", ("attention_qk8",)),
+    # K3 in bf16 is the flash body's int8-QK instance, attention_bf16<64, true>.
+    kinds = (("K3 spatial_attention_qk8", ("attention_qk8", "attention_bf16<64, true>")),
              ("K1 spatial_attention", ("attention_bf16", "attention_f32")),
-             ("K2 temporal_attention", ("temporal_attention",)),
+             ("K2 temporal_attention", ("temporal_attention", "temporal_bf16", "temporal_f32")),
              ("convolution", ("fprop", "conv", "Conv", "winograd", "cudnn")),
              ("GEMM", ("nvjet", "gemm", "Gemm", "cutlass", "cublas")),
              ("copy / concat", ("copy", "Copy", "cat_", "CatArray")),
@@ -968,7 +978,7 @@ def main() -> int:
         missing = [op for op in ops if sass[name][op] == 0]
         if missing:
             raise AssertionError(f"{name}: no {', '.join(missing)} in its SASS; the design "
-                                 f"runs on wgmma and TMA")
+                                 f"runs on them")
 
     errs: dict = {}
 
@@ -1045,7 +1055,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": m["source"], "replaces": m["replaces"],
             "launches": m["path"][name],
-            "sass": {"hgmma": ops["HGMMA"], "utmaldg": ops["UTMALDG"], "syncs": ops["SYNCS"]},
+            "sass": {op.lower(): n for op, n in ops.items()},
             "launches_int8_first_call": launches_int8[name],
             "max_abs_err": max(errs[(name, "bfloat16")], fp32 or 0.0),
             "max_abs_err_bf16": errs[(name, "bfloat16")],

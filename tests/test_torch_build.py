@@ -1,6 +1,7 @@
 """The kernel build's SASS evidence (``kernels/build.py::sass_counts``) on
 the CPU: a missing cuobjdump fails rather than skips, and the counts are
-of whole mnemonics (HGMMA.64x128x16... counts as HGMMA). On the card,
+of whole mnemonics (HGMMA.64x128x16... counts as HGMMA, IGMMA for the
+int8 wgmma, HMMA for mma.sync). On the card,
 chip_smoke.py runs it on every built library.
 """
 import os
@@ -41,7 +42,11 @@ def test_sass_counts_count_mnemonics(tmp_path, monkeypatch):
         "        /*0150*/  SYNCS.ARRIVE.TRANS64.RED.A1T0 RZ, [R3], RZ ;",
         "        /*0160*/  SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [R3], R2 ;",
         "        /*0170*/  WARPGROUP.DEPBAR.LE gsb0, 0x0 ;",
-        "        /*0180*/  LDSM.16.M88.4 R4, [R2] ;"])
+        "        /*0180*/  LDSM.16.M88.4 R4, [R2] ;",
+        "        /*0190*/  IGMMA.64x128x32.S8.S8 R24, gdesc[UR4], RZ, !UPT ;",
+        "        /*01a0*/  HMMA.16816.F32.BF16 R8, R12, R16, R8 ;",
+        "        /*01b0*/  HMMA.1688.F32.BF16 R4, R20, R22, R4 ;"])
     monkeypatch.setattr(build, "_nvcc", lambda: _fake_toolkit(tmp_path, sass))
     monkeypatch.setattr(build, "build_all", lambda: {})
-    assert build.sass_counts("fused_rcu") == {"HGMMA": 2, "UTMALDG": 2, "SYNCS": 3}
+    assert build.sass_counts("fused_rcu") == {"HGMMA": 2, "IGMMA": 1, "HMMA": 2, "UTMALDG": 2,
+                                              "SYNCS": 3}

@@ -368,3 +368,63 @@ def test_attention_body_sequence_edges_match_plain_versions(card, s):
                         k4.attention_head_major_plain(q, k, v, scale=32 ** -0.5), tol)
     assert kernels.launch_counts() == counts(spatial_attention=1, spatial_attention_qkv_fused=1,
                                              attention_head_major=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 63, 65, 127, 129, 1370, 1814])
+def test_k3_sequence_edges_match_plain_version(card, s):
+    """K3 at sequence lengths around its 128-row query and key tiles (bf16 v:
+    the wgmma body's int8-QK instance; fp32 v: the mma.sync body), v a
+    column view of a fused qkv, an even head count (the packed path).
+    Tolerance: fp32 1e-4; bf16 2e-2 up to 129 keys, 4e-3 at 1370 and more,
+    where the outputs are ten times smaller (chip_smoke.py's bound there)."""
+    scales = torch.tensor([1.6 / 127 / 8, 1.6 / 127], device="cuda")
+    kernels.reset_launch_counts()
+    for dt in (torch.bfloat16, torch.float32):
+        tol = 1e-4 if dt == torch.float32 else (4e-3 if s > 1000 else 2e-2)
+        q8, k8 = (torch.randint(-127, 128, (2, s, 384), device="cuda", generator=card,
+                                dtype=torch.int8) for _ in range(2))
+        v = torch.randn(2, s, 3 * 384, device="cuda", generator=card).to(dt)[..., 768:]
+        got = k3.spatial_attention_qk8(q8, k8, v, scales, num_heads=6)
+        ref = k3.spatial_attention_qk8_plain(q8, k8, v, scales, num_heads=6)
+        assert _bf16_err_ok(got, ref, tol)
+    assert kernels.launch_counts() == counts(spatial_attention_qk8=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_k3_reads_scales_from_the_device(card, dt):
+    """The score scale is read on the card at each launch: scales changed
+    in place between two launches, with no synchronisation between them,
+    change the second output (to the plain version's at the new scales)
+    and not the first."""
+    q8, k8 = (torch.randint(-127, 128, (2, 300, 256), device="cuda", generator=card,
+                            dtype=torch.int8) for _ in range(2))
+    v = torch.randn(2, 300, 256, device="cuda", generator=card).to(dt)
+    scales = torch.tensor([1.6 / 127 / 8, 1.6 / 127], device="cuda")
+    first = k3.spatial_attention_qk8(q8, k8, v, scales, num_heads=4)
+    scales.mul_(3.0)
+    second = k3.spatial_attention_qk8(q8, k8, v, scales, num_heads=4)
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    want_second = k3.spatial_attention_qk8_plain(q8, k8, v, scales, num_heads=4)
+    want_first = k3.spatial_attention_qk8_plain(q8, k8, v, scales / 3.0, num_heads=4)
+    assert _bf16_err_ok(first, want_first, tol) and _bf16_err_ok(second, want_second, tol)
+    assert (first.float() - second.float()).abs().max().item() > 10 * tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [4, 8, 24, 48, 128, 192])
+@pytest.mark.parametrize("t", [1, 4, 7, 31, 32])
+def test_k2_frames_and_head_dims_match_plain_version(card, t, dh):
+    """K2 in bf16 (the tensor-core kernel; dh 4 through the wrapper's zero
+    channels) and fp32 at T from 1 to 32 and head dims from 4 to 192, at
+    37 pixels, a count that no tile of pixels divides. Tolerance: fp32
+    1e-4, bf16 2e-2 (this file's bound)."""
+    kernels.reset_launch_counts()
+    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        q, k, v = (torch.randn(37, t, 8 * dh, device="cuda", generator=card).to(dt)
+                   for _ in range(3))
+        got = k2.temporal_attention(q, k, v, num_heads=8, scale=dh ** -0.5)
+        ref = k2.temporal_attention_plain(q, k, v, num_heads=8, scale=dh ** -0.5)
+        assert got.shape == q.shape and _bf16_err_ok(got, ref, tol)
+    assert kernels.launch_counts() == counts(temporal_attention=2)

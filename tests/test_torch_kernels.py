@@ -73,9 +73,11 @@ def test_spatial_plain_takes_fused_qkv_views():
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("dh", [8, 24, 48, 32])
-@pytest.mark.parametrize("t", [4, 32])
+@pytest.mark.parametrize("dh", [8, 24, 48, 32, 16, 96, 128])
+@pytest.mark.parametrize("t", [4, 32, 1, 7])
 def test_temporal_plain_matches_jax(dh, t):
+    """vits motion-module head dims (24, 48, 8), vitb's and vitl's (16, 96,
+    128) and 32, at T = 32, 4 and the odd 1 and 7."""
     p, h = 6, 8
     c = h * dh
     q, k, v = (_rand((p, t, c), 10 + i) for i in range(3))
@@ -107,6 +109,22 @@ def test_temporal_plain_bf16_matches_jax_flat_form():
                                rtol=2 ** -7, atol=2 ** -7)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_temporal_zero_channels_change_nothing(dtype):
+    """K2's wrapper pads a bf16 head dim that is not a multiple of 8 with
+    zero channels per head around the launch and drops them after: on the
+    plain version, the padded run's kept channels equal the unpadded run."""
+    p, t, h, dh = 5, 7, 8, 4
+    q, k, v = (torch.from_numpy(_rand((p, t, h * dh), 70 + i)).to(dtype) for i in range(3))
+    want = k2.temporal_attention(q, k, v, num_heads=h, scale=dh ** -0.5)
+    padded = k2.temporal_attention(*(k2.pad_heads(x, h, 8) for x in (q, k, v)), num_heads=h,
+                                   scale=dh ** -0.5)
+    assert padded.shape == (p, t, h * 8)
+    got = padded.reshape(p, t, h, 8)[..., :dh].reshape(p, t, h * dh)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert not padded.reshape(p, t, h, 8)[..., dh:].any()
+
+
 def test_wrapper_checks_reject_what_the_kernels_do_not_take():
     x = torch.zeros(2, 10, 64)      # two heads of 32: K1 takes dh = 64 only
     with pytest.raises(ValueError, match="head dim"):
@@ -119,6 +137,10 @@ def test_wrapper_checks_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         z = torch.zeros(3, 4, 128)[..., :64]
         k2._check(z, z, z, num_heads=8)
+    w = torch.zeros(2, 4, 2 * 520, dtype=torch.bfloat16)   # bf16 head dim over 512
+    with pytest.raises(ValueError, match="head dim 520"):
+        k2._check(w, w, w, num_heads=2)
+    k2._check(w.float(), w.float(), w.float(), num_heads=2)   # fp32 takes any head dim
 
 
 def _qk8_inputs(b, s, h, seed, dh=64):

@@ -1,7 +1,8 @@
-// The flash-attention body shared by K1 (spatial_attention.cu), K4
-// (attention_head_major.cu) and K5 (K1's entry at scale 1), templated on the
-// head-dim tile DT (16, 32, 64 or 128). Each .cu that includes it compiles
-// on its own.
+// The flash-attention body shared by K1 (spatial_attention.cu), K3
+// (spatial_attention_qk8.cu, bf16 v), K4 (attention_head_major.cu) and K5
+// (K1's entry at scale 1), templated on the head-dim tile DT (16, 32, 64 or
+// 128) and, for K3, on int8 q and k (QK8). Each .cu that includes it
+// compiles on its own.
 //
 // Computes, per (batch, head): softmax(q' k^T * s_scale) v, where
 // q' = q * q_scale rounded to q's dtype (q_scale = 1 leaves q as it is),
@@ -33,6 +34,13 @@
 // bf16. Tiles use the widest swizzle their rows allow (32, 64 or 128 bytes);
 // DT = 128 is two 64-column sub-tiles. Nothing in the K loop calls
 // __syncthreads.
+// int8 QK (QK8, K3; DT = 64): q and k are int8 rows of 64 bytes, loaded by
+// TMA into 64-byte-swizzled tiles; QK runs as wgmma s8.s8 -> s32 in two
+// k steps of 32 bytes, exact (|s| <= 64 * 127^2 < 2^24), and the int32
+// scores turn into fp32 once their group is waited for. The score scale is
+// scales[0] * scales[1], read from the device. The rest is the bf16 body's:
+// the row max taken on the (integer) scores, keys past S at -inf and out
+// of the row max, PV on bf16 V, the fp32 denominator.
 // fp32 (attention_f32, the --fp32 correctness path): true fp32 FMAs (no
 // TF32), 64-query blocks of 4 warps, each lane owning two keys of the score
 // strip and DT / 32 output dims (one for DT <= 32).
@@ -64,6 +72,7 @@ struct Params {
   long long v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
   float q_scale;  // applied to q in its own dtype (already rounded to it)
   float s_scale;  // applied to the fp32 scores; > 0
+  const float* scales;  // QK8: the score scale is scales[0] * scales[1] (device)
 };
 
 template <int DT>
@@ -96,19 +105,24 @@ __device__ __forceinline__ float fast_exp2(float x) {
 }
 
 
-template <int DT>
+template <int DT, bool QK8 = false>
 struct Wg {
   static constexpr int BQ = 128;                    // query rows per block
   static constexpr int BK = 128;                    // keys per tile
   static constexpr int SW = DT * 2 < 128 ? DT * 2 : 128;  // swizzle = sub-tile row bytes
   static constexpr int COLS = SW / 2;               // columns per sub-tile
   static constexpr int NSUB = DT / COLS;            // sub-tiles per tile
+  // Q and K: bf16 sub-tiles as V, or (QK8) int8 rows of DT bytes, one sub-tile.
+  static constexpr int QK_SW = QK8 ? DT : SW;
+  static constexpr int QK_COLS = QK8 ? DT : COLS;
+  static constexpr int QK_NSUB = DT / QK_COLS;
   static constexpr int STAGES = DT == 128 ? 2 : 3;  // K / V ring depth
-  static constexpr int Q_BYTES = BQ * DT * 2;
-  static constexpr int KV_BYTES = BK * DT * 2;
+  static constexpr int Q_BYTES = BQ * DT * (QK8 ? 1 : 2);
+  static constexpr int K_BYTES = BK * DT * (QK8 ? 1 : 2);
+  static constexpr int V_BYTES = BK * DT * 2;
   static constexpr int THREADS = 384;               // consumers 0, 1; producer 2
   static constexpr int BARS = 1 + 4 * STAGES;       // q, k full / empty, v full / empty
-  static constexpr size_t SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARS;
+  static constexpr size_t SMEM = 1024 + Q_BYTES + STAGES * (K_BYTES + V_BYTES) + 8 * BARS;
 };
 
 struct alignas(64) TmaParams {
@@ -116,19 +130,20 @@ struct alignas(64) TmaParams {
   Params p;
 };
 
-template <int DT>
+template <int DT, bool QK8 = false>
 __global__ void __launch_bounds__(384, 1) attention_bf16(const __grid_constant__ TmaParams tp) {
-  using W = Wg<DT>;
+  using W = Wg<DT, QK8>;
   using namespace hopper;
   constexpr int SW = W::SW, COLS = W::COLS, NSUB = W::NSUB, ST = W::STAGES, BK = W::BK;
+  constexpr int QSW = W::QK_SW, QCOLS = W::QK_COLS, QNSUB = W::QK_NSUB;
   extern __shared__ unsigned char smem_raw[];
   // Tiles 1024-aligned (the 128-byte swizzle's atom), barriers after them.
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* Qs = base;                              // NSUB x [128][SW]
-  unsigned char* Ks = Qs + W::Q_BYTES;                   // ST x NSUB x [128][SW]
-  unsigned char* Vs = Ks + ST * W::KV_BYTES;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + ST * W::KV_BYTES);
+  unsigned char* Qs = base;                              // QNSUB x [128][QSW]
+  unsigned char* Ks = Qs + W::Q_BYTES;                   // ST x QNSUB x [128][QSW]
+  unsigned char* Vs = Ks + ST * W::K_BYTES;              // ST x NSUB x [128][SW]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + ST * W::V_BYTES);
   uint64_t* q_full = bars;
   uint64_t* k_full = bars + 1;
   uint64_t* k_empty = k_full + ST;
@@ -159,21 +174,21 @@ __global__ void __launch_bounds__(384, 1) attention_bf16(const __grid_constant__
     if (threadIdx.x == 256) {
       mbar_expect_tx(q_full, W::Q_BYTES);
 #pragma unroll
-      for (int j = 0; j < NSUB; ++j)
-        tma_load_4d(Qs + j * W::BQ * SW, &tp.q, q_full, j * COLS, q0, h, b);
+      for (int j = 0; j < QNSUB; ++j)
+        tma_load_4d(Qs + j * W::BQ * QSW, &tp.q, q_full, j * QCOLS, q0, h, b);
       for (int t = 0; t < ntiles; ++t) {
         const int s = t % ST;
         const uint32_t ph = (t / ST) & 1;
         mbar_wait(&k_empty[s], ph ^ 1);
-        mbar_expect_tx(&k_full[s], W::KV_BYTES);
+        mbar_expect_tx(&k_full[s], W::K_BYTES);
 #pragma unroll
-        for (int j = 0; j < NSUB; ++j)
-          tma_load_4d(Ks + s * W::KV_BYTES + j * BK * SW, &tp.k, &k_full[s], j * COLS, t * BK, h, b);
+        for (int j = 0; j < QNSUB; ++j)
+          tma_load_4d(Ks + s * W::K_BYTES + j * BK * QSW, &tp.k, &k_full[s], j * QCOLS, t * BK, h, b);
         mbar_wait(&v_empty[s], ph ^ 1);
-        mbar_expect_tx(&v_full[s], W::KV_BYTES);
+        mbar_expect_tx(&v_full[s], W::V_BYTES);
 #pragma unroll
         for (int j = 0; j < NSUB; ++j)
-          tma_load_4d(Vs + s * W::KV_BYTES + j * BK * SW, &tp.v, &v_full[s], j * COLS, t * BK, h, b);
+          tma_load_4d(Vs + s * W::V_BYTES + j * BK * SW, &tp.v, &v_full[s], j * COLS, t * BK, h, b);
       }
     }
     return;
@@ -184,10 +199,12 @@ __global__ void __launch_bounds__(384, 1) attention_bf16(const __grid_constant__
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c2 = (lane & 3) * 2;  // accumulator row, column pair
   const bool leader = tid == 0;                  // arrives for the warpgroup
-  const float sl2 = p.s_scale * 1.4426950408889634f;  // s_scale * log2(e)
+  float sl2;                                     // the score scale * log2(e)
+  if constexpr (QK8) sl2 = p.scales[0] * p.scales[1] * 1.4426950408889634f;
+  else sl2 = p.s_scale * 1.4426950408889634f;
 
   mbar_wait(q_full, 0);
-  if (p.q_scale != 1.f) {  // q * q_scale, rounded to bf16 per element, in place
+  if (!QK8 && p.q_scale != 1.f) {  // q * q_scale, rounded to bf16 per element, in place
     const __nv_bfloat162 s2 = __float2bfloat162_rn(p.q_scale);
 #pragma unroll
     for (int j = 0; j < NSUB; ++j) {
@@ -205,12 +222,14 @@ __global__ void __launch_bounds__(384, 1) attention_bf16(const __grid_constant__
   }
 
   // Descriptors: Q (A) and K (B) K-major, V (B) MN-major; k step kk of QK
-  // is 16 columns, of PV 16 keys (16 rows of the V tile).
-  const uint32_t q_addr = smem_u32(Qs) + wg * 64 * SW;
+  // is 32 bytes of a row (16 bf16 or 32 int8 columns), of PV 16 keys (16
+  // rows of the V tile).
+  const uint32_t q_addr = smem_u32(Qs) + wg * 64 * QSW;
   const uint32_t k_addr = smem_u32(Ks), v_addr = smem_u32(Vs);
-  auto qk_off = [](int kk) { return (kk * 16 / COLS) * 128 * SW + (kk * 16 % COLS) * 2; };
+  auto qk_off = [](int kk) { return (kk * 32 / QSW) * 128 * QSW + kk * 32 % QSW; };
 
   float s[BK / 2];                 // scores / probabilities, 64 x 128 (16 blocks of 8 keys)
+  uint32_t si[QK8 ? BK / 2 : 1];   // QK8: the int32 scores while their group runs
   uint32_t pa[BK / 16][4];         // the previous tile's probabilities, bf16 A fragments
   float o[NSUB][COLS / 2];         // output, 64 x DT
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // log2 domain
@@ -222,10 +241,17 @@ __global__ void __launch_bounds__(384, 1) attention_bf16(const __grid_constant__
 
   auto issue_qk = [&](int stage) {
 #pragma unroll
-    for (int kk = 0; kk < DT / 16; ++kk)
-      wgmma_ss_n128<0, 0>(s, make_desc(q_addr + qk_off(kk), SW, 8 * SW, 8 * SW),
-                          make_desc(k_addr + stage * W::KV_BYTES + qk_off(kk), SW, 8 * SW, 8 * SW),
-                          kk > 0);
+    for (int kk = 0; kk < DT * (QK8 ? 1 : 2) / 32; ++kk) {
+      const uint64_t da = make_desc(q_addr + qk_off(kk), QSW, 8 * QSW, 8 * QSW);
+      const uint64_t db = make_desc(k_addr + stage * W::K_BYTES + qk_off(kk), QSW, 8 * QSW,
+                                    8 * QSW);
+      if constexpr (QK8) {
+        if (kk == 0) wgmma_ss_n128_s8<false>(si, da, db);
+        else wgmma_ss_n128_s8<true>(si, da, db);
+      } else {
+        wgmma_ss_n128<0, 0>(s, da, db, kk > 0);
+      }
+    }
     wgmma_commit();
   };
   auto issue_pv = [&](int stage) {
@@ -234,9 +260,21 @@ __global__ void __launch_bounds__(384, 1) attention_bf16(const __grid_constant__
 #pragma unroll
       for (int j = 0; j < NSUB; ++j)
         wgmma_rs<COLS, 1>(o[j], pa[kk],
-                          make_desc(v_addr + stage * W::KV_BYTES + j * BK * SW + kk * 16 * SW,
+                          make_desc(v_addr + stage * W::V_BYTES + j * BK * SW + kk * 16 * SW,
                                     SW, 8 * SW, 8 * SW), 1);
     wgmma_commit();
+  };
+  // The QK accumulator, pinned around its asynchronous products.
+  auto fence_acc = [&]() {
+    if constexpr (QK8) fence_regs(si);
+    else fence_regs(s);
+  };
+  // QK8: the waited-for int32 scores into s, exactly (|s| < 2^24).
+  auto int_scores = [&]() {
+    if constexpr (QK8) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) s[i] = static_cast<float>(static_cast<int>(si[i]));
+    }
   };
   auto fence_o_pa = [&]() {
     fence_regs(o[0]);
@@ -301,13 +339,14 @@ __global__ void __launch_bounds__(384, 1) attention_bf16(const __grid_constant__
   // Tile 0: QK alone.
   mbar_wait(&k_full[0], 0);
   named_sync(1 + wg, 256);
-  fence_regs(s);
+  fence_acc();
   wgmma_fence();
   issue_qk(0);
   if (wg == 0 || ntiles > 1) named_arrive(2 - wg, 256);
   wgmma_wait<0>();
-  fence_regs(s);
+  fence_acc();
   if (leader) mbar_arrive(&k_empty[0]);
+  int_scores();
   softmax(0);
   pack_p();
 
@@ -318,15 +357,16 @@ __global__ void __launch_bounds__(384, 1) attention_bf16(const __grid_constant__
     mbar_wait(&k_full[s_k], (t / ST) & 1);
     mbar_wait(&v_full[s_v], ((t - 1) / ST) & 1);
     named_sync(1 + wg, 256);       // this consumer's turn
-    fence_regs(s);
+    fence_acc();
     fence_o_pa();
     wgmma_fence();
     issue_qk(s_k);
     issue_pv(s_v);
     if (wg == 0 || t + 1 < ntiles) named_arrive(2 - wg, 256);   // the other's turn
     wgmma_wait<1>();               // QK done, PV may run on
-    fence_regs(s);
+    fence_acc();
     if (leader) mbar_arrive(&k_empty[s_k]);
+    int_scores();
     softmax(t);
     wgmma_wait<0>();               // PV of t - 1 done: free its V stage, rescale
     fence_o_pa();
@@ -495,14 +535,15 @@ __global__ void __launch_bounds__(THREADS) attention_f32(const Params p) {
   }
 }
 
-// dtype: 0 = fp32, 1 = bf16. Grid (query tiles, H, B); returns the
-// cudaError_t of the launch (0 on success; cudaErrorInvalidValue if
-// cuTensorMapEncodeTiled refuses a tensor map); does not synchronise.
-template <int DT>
+// dtype: 0 = fp32, 1 = bf16 (QK8: bf16 v only; q and k int8). Grid (query
+// tiles, H, B); returns the cudaError_t of the launch (0 on success;
+// cudaErrorInvalidValue if cuTensorMapEncodeTiled refuses a tensor map);
+// does not synchronise.
+template <int DT, bool QK8 = false>
 int launch(int dtype, const Params& p, int B, int H, cudaStream_t st) {
   cudaError_t err;
   if (dtype == 1) {
-    using W = Wg<DT>;
+    using W = Wg<DT, QK8>;
     TmaParams tp;
     tp.p = p;
     const void* ptrs[3] = {p.q, p.k, p.v};
@@ -511,17 +552,23 @@ int launch(int dtype, const Params& p, int B, int H, cudaStream_t st) {
     CUtensorMap* maps[3] = {&tp.q, &tp.k, &tp.v};
     const uint64_t dims[4] = {(uint64_t)p.D, (uint64_t)p.S, (uint64_t)H, (uint64_t)B};
     const uint32_t box[4] = {(uint32_t)W::COLS, 128u, 1u, 1u};
+    const uint32_t qk_box[4] = {(uint32_t)W::QK_COLS, 128u, 1u, 1u};
     for (int i = 0; i < 3; ++i) {
       const int64_t str[3] = {strides[i][0], strides[i][1], strides[i][2]};
-      if (!hopper::make_map(maps[i], ptrs[i], 4, dims, str, box, W::SW))
+      const bool i8 = QK8 && i < 2;   // int8 q and k: bytes as UINT8
+      if (!hopper::make_map(maps[i], ptrs[i], 4, dims, str, i8 ? qk_box : box,
+                            i8 ? W::QK_SW : W::SW,
+                            i8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            i8 ? 1 : 2))
         return (int)cudaErrorInvalidValue;
     }
-    err = cudaFuncSetAttribute(attention_bf16<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)W::SMEM);
+    err = cudaFuncSetAttribute(attention_bf16<DT, QK8>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)W::SMEM);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((p.S + W::BQ - 1) / W::BQ, H, B);
-    attention_bf16<DT><<<grid, W::THREADS, W::SMEM, st>>>(tp);
-  } else if (dtype == 0) {
+    attention_bf16<DT, QK8><<<grid, W::THREADS, W::SMEM, st>>>(tp);
+  } else if constexpr (!QK8) {
+    if (dtype != 0) return (int)cudaErrorInvalidValue;
     err = cudaFuncSetAttribute(attention_f32<DT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)Tile<DT>::SMEM_F32);

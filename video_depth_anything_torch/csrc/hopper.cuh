@@ -1,11 +1,12 @@
-// Hopper (sm_90a) primitives shared by the wgmma kernels: K1/K4/K5's
+// Hopper (sm_90a) primitives shared by the wgmma kernels: K1/K3/K4/K5's
 // attention body (attention_flash.cuh) and K6 (fused_rcu.cu). Inline PTX
 // only; each .cu that includes it compiles on its own.
 //
 //   - wgmma.mma_async bf16 -> fp32, A from registers (rs) or shared memory
-//     (ss), with fence / commit_group / wait_group and an operand fence
-//     that keeps the compiler from moving register reads and writes across
-//     an asynchronous product;
+//     (ss), and s8 x s8 -> s32 with both operands from shared memory, with
+//     fence / commit_group / wait_group and an operand fence that keeps the
+//     compiler from moving register reads and writes across an asynchronous
+//     product;
 //   - shared-memory matrix descriptors for the 32-, 64- and 128-byte
 //     swizzles that TMA writes;
 //   - mbarriers: init, arrive (local or on a cluster peer), arrive with an
@@ -191,6 +192,39 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// d (64 x 128, s32) = A (64 x 32, s8) * B (32 x 128, s8), plus d when ACC,
+// both operands K-major by descriptor (8-bit wgmma has no transpose): exact
+// integer products. Without ACC, d's old value is not an operand, so the
+// registers are free until the first k step.
+#define VDA_WGMMA_D64(c) c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), \
+  c(d[6]), c(d[7]), c(d[8]), c(d[9]), c(d[10]), c(d[11]), c(d[12]), c(d[13]), \
+  c(d[14]), c(d[15]), c(d[16]), c(d[17]), c(d[18]), c(d[19]), c(d[20]), c(d[21]), \
+  c(d[22]), c(d[23]), c(d[24]), c(d[25]), c(d[26]), c(d[27]), c(d[28]), c(d[29]), \
+  c(d[30]), c(d[31]), c(d[32]), c(d[33]), c(d[34]), c(d[35]), c(d[36]), c(d[37]), \
+  c(d[38]), c(d[39]), c(d[40]), c(d[41]), c(d[42]), c(d[43]), c(d[44]), c(d[45]), \
+  c(d[46]), c(d[47]), c(d[48]), c(d[49]), c(d[50]), c(d[51]), c(d[52]), c(d[53]), \
+  c(d[54]), c(d[55]), c(d[56]), c(d[57]), c(d[58]), c(d[59]), c(d[60]), c(d[61]), \
+  c(d[62]), c(d[63])
+template <bool ACC>
+__device__ __forceinline__ void wgmma_ss_n128_s8(uint32_t (&d)[64], uint64_t desc_a,
+                                                 uint64_t desc_b) {
+#define VDA_WGMMA_S8                                                               \
+  "{\n.reg .pred p;\n"                                                             \
+  "setp.ne.b32 p, %66, 0;\n"                                                        \
+  "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "         \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "         \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "         \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "         \
+  "%58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+  if constexpr (ACC)
+    asm volatile(VDA_WGMMA_S8 : VDA_WGMMA_D64("+r") : "l"(desc_a), "l"(desc_b), "r"(1));
+  else
+    asm volatile(VDA_WGMMA_S8 : VDA_WGMMA_D64("=r") : "l"(desc_a), "l"(desc_b), "r"(0));
+#undef VDA_WGMMA_S8
+}
+#undef VDA_WGMMA_D64
+
 // d (64 x N, fp32) += a (64 x 16, this warp's rows in registers, the
 // mma.sync m16n8k16 A layout) * B (16 x N, descriptor); scale_d = 0 drops d.
 template <int N, int TB>
@@ -340,12 +374,15 @@ inline CUtensorMapSwizzle swizzle_mode(int sw) {
        : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first) with strides in
-// elements for dims 1.. (dim 0 is contiguous), a box of `box` elements and
-// an `sw`-byte swizzle; elements outside the tensor load as zero. Returns
+// A tensor map of `rank` dims (innermost first) of `elem_bytes`-byte
+// elements of type `dtype` (bf16 unless given), with strides in elements
+// for dims 1.. (dim 0 is contiguous), a box of `box` elements and an
+// `sw`-byte swizzle; elements outside the tensor load as zero. Returns
 // false if cuTensorMapEncodeTiled refuses it.
 inline bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                     const int64_t* strides, const uint32_t* box, int sw) {
+                     const int64_t* strides, const uint32_t* box, int sw,
+                     CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                     int elem_bytes = 2) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (!fn) return false;
   cuuint64_t gdim[5], gstride[4];
@@ -355,9 +392,9 @@ inline bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_
     gbox[i] = box[i];
     estride[i] = 1;
     // A dim of size 1 is never stepped; any legal stride serves.
-    if (i > 0) gstride[i - 1] = dims[i] == 1 ? 16 : (cuuint64_t)strides[i - 1] * 2;
+    if (i > 0) gstride[i - 1] = dims[i] == 1 ? 16 : (cuuint64_t)strides[i - 1] * elem_bytes;
   }
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), gdim,
+  return fn(map, dtype, rank, const_cast<void*>(base), gdim,
             gstride, gbox, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_mode(sw),
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -16,37 +16,40 @@
 // 1979 TOP/s plus as many bf16 FLOPs for PV at 989 TFLOP/s (67 TFLOP/s for
 // fp32 v) against B*S*C*(1 + 1 + 2 * sizeof(v)) bytes (the main path's
 // [22, 1814, 384]: about 0.084 ms of tensor-core time against 0.027 ms of
-// memory time).
+// memory time). The exponentials (B*H*S^2 of them) take about as long as
+// the products at the special-function rate.
 //
-// Design: K1's (csrc/spatial_attention.cu). The TPU kernel keeps all of S
-// resident; here each block owns one (64-query tile, head, batch) and
-// streams 64-key tiles through shared memory with an online softmax, K
-// (int8) and V double buffered with cp.async and zero-filled past S. Each
-// of the 4 warps owns 16 query rows end to end. QK runs on the int8 tensor
-// cores, mma.sync m16n8k32 s8.s8.s32, which is exact: |s| <= 64 * 127^2 <
-// 2^24, so scores and row maxima convert to fp32 exactly and the running
-// max is an integer held in fp32. An int8 row of one head is 64 bytes, so
-// the A and B fragments load with the same ldmatrix (b16) addressing, in
-// bytes, as K1's bf16 tiles; one ldmatrix.x4 brings 8 keys x 64 dims. The
-// int32 accumulator has the fp32 accumulator's fragment layout, so the
-// softmax and PV are K1's: bf16 v re-packs the probabilities from registers
-// as the A operand of mma.sync m16n8k16 (V transposed by ldmatrix.trans);
-// fp32 v (--int8 --fp32) writes the warp's probability strip to shared
-// memory and runs K1's fp32 FMA product, each lane owning two output dims.
-// The denominator sums the fp32 probabilities, as K1 does (the TPU kernel
-// sums the bf16-rounded ones on its matrix unit).
-// Not yet: wgmma, TMA, warp specialisation.
+// Design, bf16 v: the flash body of K1 (attention_flash.cuh) with int8 q
+// and k (its QK8 instance). The TPU kernel keeps all of S resident; here a
+// block owns 128 query rows of one (batch, head): a producer warp TMA-loads
+// the int8 Q tile once and a 3-stage ring of int8 K tiles (128 keys x 64
+// bytes, 64-byte swizzle) and bf16 V tiles (read in place from the fused
+// qkv's column view); two consumer warpgroups run QK as wgmma
+// m64n128k32 s8.s8 -> s32 (two k steps per head), exact, convert the
+// integer scores to fp32 once their group is waited for, and run K1's
+// online softmax (row max on the integer scores, keys past S at -inf and
+// out of the max, the scale scales[0] * scales[1] * log2(e) folded into
+// one FFMA per score) and PV on wgmma with the probabilities in registers
+// as bf16, taking turns on the tensor cores. The denominator sums the fp32
+// probabilities, as K1 does (the TPU kernel sums the bf16-rounded ones on
+// its matrix unit).
+// fp32 v (--int8 --fp32, the correctness path): 64-query blocks of 4 warps
+// streaming 64-key tiles through shared memory (cp.async, double buffered,
+// zero past S); QK on mma.sync m16n8k32 s8.s8.s32 (an int8 row of one head
+// is 64 bytes, so the fragments load with ldmatrix's b16 addressing in
+// bytes), the same online softmax, and each warp's probability strip
+// through shared memory into fp32 FMAs, each lane owning two output dims.
 
 #include <math.h>
 
-#include "attention_common.cuh"
+#include "attention_flash.cuh"
 
 namespace {
 
 using namespace vda;
 
 constexpr int DH = 64;          // head dim (all four encoders)
-constexpr int BQ = 64;          // query rows per block
+constexpr int BQ = 64;          // query rows per block (fp32 v)
 constexpr int BK = 64;          // keys per tile
 constexpr int WARPS = 4;        // each warp owns BQ / WARPS = 16 query rows
 constexpr int THREADS = WARPS * 32;
@@ -54,20 +57,12 @@ constexpr int RW = BQ / WARPS;  // rows per warp
 constexpr int LD8 = DH + 16;    // int8 tile pitch (bytes): 80, so the 8 rows
                                 // of an ldmatrix hit 8 distinct bank quads
 constexpr int TILE8 = BQ * LD8; // bytes of one int8 tile
-constexpr int LDB = DH + 8;     // bf16 V tile pitch (elements): 144 B rows
 constexpr int LDF = DH + 4;     // fp32 V tile pitch (elements): 272 B rows
 constexpr int LDP = BK + 1;     // fp32 probability strip pitch (elements)
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <bool BF16> struct VType { using T = float; static constexpr int LD = LDF; };
-template <> struct VType<true> { using T = __nv_bfloat16; static constexpr int LD = LDB; };
-
-// Q, K double buffered, V double buffered, and (fp32 v) the probability strip.
-template <bool BF16>
-constexpr size_t smem_bytes() {
-  return 3 * TILE8 + 2 * BK * VType<BF16>::LD * sizeof(typename VType<BF16>::T)
-         + (BF16 ? 0 : BQ * LDP * sizeof(float));
-}
+// Q, K double buffered, V double buffered and the probability strip.
+constexpr size_t SMEM_F32 = 3 * TILE8 + 2 * BK * LDF * sizeof(float) + BQ * LDP * sizeof(float);
 
 // d += a[16x32, row] * b[32x8, col], int8 in, exact int32 accumulate.
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
@@ -99,21 +94,16 @@ __device__ __forceinline__ float row_value(const float (&v)[2], int i) {
   return __shfl_sync(0xffffffffu, i < 8 ? v[0] : v[1], (i & 7) * 4);
 }
 
-template <bool BF16>
 __global__ void __launch_bounds__(THREADS)
-attention_qk8(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
-              const typename VType<BF16>::T* __restrict__ v,
-              const float* __restrict__ scales,
-              typename VType<BF16>::T* __restrict__ o, int S, int H,
-              long long v_sb, long long v_ss) {
-  using T = typename VType<BF16>::T;
-  constexpr int LDV = VType<BF16>::LD;
-  constexpr int VTILE = BK * LDV;
+attention_qk8_f32(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ scales,
+                  float* __restrict__ o, int S, int H, long long v_sb, long long v_ss) {
+  constexpr int VTILE = BK * LDF;
   extern __shared__ __align__(128) unsigned char smem[];
   int8_t* Qs = reinterpret_cast<int8_t*>(smem);
-  int8_t* Ks = Qs + TILE8;                          // [2][TILE8]
-  T* Vs = reinterpret_cast<T*>(Ks + 2 * TILE8);     // [2][VTILE]
-  float* Ps = reinterpret_cast<float*>(Vs + 2 * VTILE);  // fp32 v: [BQ][LDP]
+  int8_t* Ks = Qs + TILE8;                                 // [2][TILE8]
+  float* Vs = reinterpret_cast<float*>(Ks + 2 * TILE8);    // [2][VTILE]
+  float* Ps = Vs + 2 * VTILE;                              // [BQ][LDP]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
@@ -122,31 +112,26 @@ attention_qk8(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
   const long long C = (long long)H * DH;
   const long long qk_off = (long long)b * S * C + h * DH;
   const int8_t* kb = k + qk_off;
-  const T* vb = v + (long long)b * v_sb + h * DH;
+  const float* vb = v + (long long)b * v_sb + h * DH;
   const float cl2 = scales[0] * scales[1] * LOG2E;  // score scale, log2 domain
 
   load_tile_async<int8_t, LD8>(Qs, q + qk_off, C, q0, S);
   load_tile_async<int8_t, LD8>(Ks, kb, C, 0, S);
-  load_tile_async<T, LDV>(Vs, vb, v_ss, 0, S);
+  load_tile_async<float, LDF>(Vs, vb, v_ss, 0, S);
   cp_async_commit();
 
   uint32_t qf[DH / 32][4];  // A fragments of the warp's 16 Q rows, 2 k-steps
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  // Output: bf16 v in the MMA layout (8 dim blocks x (row g, g + 8));
-  // fp32 v as lane-owned dims lane and lane + 32 of the warp's 16 rows.
-  constexpr int NACC = BF16 ? DH / 8 : 1, NROW = BF16 ? 1 : RW;
-  float acc[NACC][4], o0[NROW], o1[NROW];
+  float o0[RW], o1[RW];     // lane-owned output dims lane and lane + 32
 #pragma unroll
-  for (int n = 0; n < NACC; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-#pragma unroll
-  for (int i = 0; i < NROW; ++i) o0[i] = o1[i] = 0.f;
+  for (int i = 0; i < RW; ++i) o0[i] = o1[i] = 0.f;
 
   const int ntiles = (S + BK - 1) / BK;
   for (int t = 0; t < ntiles; ++t) {
     const int buf = t & 1;
     if (t + 1 < ntiles) {
       load_tile_async<int8_t, LD8>(Ks + (buf ^ 1) * TILE8, kb, C, (t + 1) * BK, S);
-      load_tile_async<T, LDV>(Vs + (buf ^ 1) * VTILE, vb, v_ss, (t + 1) * BK, S);
+      load_tile_async<float, LDF>(Vs + (buf ^ 1) * VTILE, vb, v_ss, (t + 1) * BK, S);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -154,7 +139,7 @@ attention_qk8(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
     }
     __syncthreads();  // tile t (and Q) visible to every warp
     const int8_t* Kt = Ks + buf * TILE8;
-    const T* Vt = Vs + buf * VTILE;
+    const float* Vt = Vs + buf * VTILE;
     if (t == 0) {
 #pragma unroll
       for (int kk = 0; kk < DH / 32; ++kk)
@@ -204,52 +189,28 @@ attention_qk8(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
       }
     }
 
-    if constexpr (BF16) {
+    // The warp's probability strip [16, 64] to shared memory, then fp32
+    // FMAs: lane owns output dims lane and lane + 32.
 #pragma unroll
-      for (int n = 0; n < DH / 8; ++n) {
-        acc[n][0] *= alpha[0]; acc[n][1] *= alpha[0];
-        acc[n][2] *= alpha[1]; acc[n][3] *= alpha[1];
-      }
-      // Output [16, 64] += P [16, 64 keys] V [64 keys, 64]: the score
-      // fragments of key blocks 2kk and 2kk + 1 are the A fragment of k-step kk.
+    for (int n = 0; n < BK / 8; ++n) {
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      for (int e = 0; e < 4; ++e)
+        Ps[(r0 + g + 8 * (e >> 1)) * LDP + n * 8 + c2 + (e & 1)] = s[n][e];
+    }
 #pragma unroll
-        for (int np = 0; np < DH / 16; ++np) {
-          uint32_t vf[4];  // B fragments of dim blocks 2np, 2np + 1 (V transposed)
-          ldsm_x4_trans(vf, Vt + (kk * 16 + (lane & 15)) * LDV + np * 16 + (lane >> 4) * 8);
-          mma_bf16(acc[2 * np], pa, vf[0], vf[1]);
-          mma_bf16(acc[2 * np + 1], pa, vf[2], vf[3]);
-        }
-      }
-    } else {
-      // The warp's probability strip [16, 64] to shared memory, then fp32
-      // FMAs: lane owns output dims lane and lane + 32.
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          Ps[(r0 + g + 8 * (e >> 1)) * LDP + n * 8 + c2 + (e & 1)] = s[n][e];
-      }
+    for (int i = 0; i < RW; ++i) {
+      const float a = row_value(alpha, i);
+      o0[i] *= a;
+      o1[i] *= a;
+    }
+    __syncwarp();
+    for (int j = 0; j < BK; ++j) {
+      const float va = Vt[j * LDF + lane], vc = Vt[j * LDF + lane + 32];
 #pragma unroll
       for (int i = 0; i < RW; ++i) {
-        const float a = row_value(alpha, i);
-        o0[i] *= a;
-        o1[i] *= a;
-      }
-      __syncwarp();
-      for (int j = 0; j < BK; ++j) {
-        const float va = Vt[j * LDV + lane], vc = Vt[j * LDV + lane + 32];
-#pragma unroll
-        for (int i = 0; i < RW; ++i) {
-          const float p = Ps[(r0 + i) * LDP + j];
-          o0[i] = fmaf(p, va, o0[i]);
-          o1[i] = fmaf(p, vc, o1[i]);
-        }
+        const float p = Ps[(r0 + i) * LDP + j];
+        o0[i] = fmaf(p, va, o0[i]);
+        o1[i] = fmaf(p, vc, o1[i]);
       }
     }
     __syncthreads();  // every warp is done with this buffer before it refills
@@ -257,46 +218,15 @@ attention_qk8(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
 
   // Every lane shuffles before any lane skips a row past S.
   const float lt[2] = {quad_sum(l[0]), quad_sum(l[1])};
-  if constexpr (BF16) {
-    const float inv[2] = {1.f / fmaxf(lt[0], 1e-30f), 1.f / fmaxf(lt[1], 1e-30f)};
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = q0 + r0 + g + 8 * i;
-      if (row >= S) continue;
-      T* orow = o + ((long long)b * S + row) * C + h * DH + c2;
-#pragma unroll
-      for (int n = 0; n < DH / 8; ++n)
-        *reinterpret_cast<uint32_t*>(orow + n * 8) =
-            pack_bf16(acc[n][2 * i] * inv[i], acc[n][2 * i + 1] * inv[i]);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < RW; ++i) {
-      const float inv = 1.f / fmaxf(row_value(lt, i), 1e-30f);
-      const int row = q0 + r0 + i;
-      if (row >= S) continue;
-      T* orow = o + ((long long)b * S + row) * C + h * DH;
-      orow[lane] = o0[i] * inv;
-      orow[lane + 32] = o1[i] * inv;
-    }
+  for (int i = 0; i < RW; ++i) {
+    const float inv = 1.f / fmaxf(row_value(lt, i), 1e-30f);
+    const int row = q0 + r0 + i;
+    if (row >= S) continue;
+    float* orow = o + ((long long)b * S + row) * C + h * DH;
+    orow[lane] = o0[i] * inv;
+    orow[lane + 32] = o1[i] * inv;
   }
-}
-
-template <bool BF16>
-int launch(const void* q8, const void* k8, const void* v, const void* scales,
-           void* o, int B, int S, int H, long long v_sb, long long v_ss,
-           cudaStream_t st) {
-  using T = typename VType<BF16>::T;
-  constexpr size_t smem = smem_bytes<BF16>();
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_qk8<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-  attention_qk8<BF16><<<grid, THREADS, smem, st>>>(
-      static_cast<const int8_t*>(q8), static_cast<const int8_t*>(k8),
-      static_cast<const T*>(v), static_cast<const float*>(scales),
-      static_cast<T*>(o), S, H, v_sb, v_ss);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -310,7 +240,22 @@ extern "C" int vda_spatial_attention_qk8(int dtype, const void* q8, const void* 
                                          int B, int S, int H, long long v_sb,
                                          long long v_ss, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch<true>(q8, k8, v, scales, o, B, S, H, v_sb, v_ss, st);
-  if (dtype == 0) return launch<false>(q8, k8, v, scales, o, B, S, H, v_sb, v_ss, st);
-  return (int)cudaErrorInvalidValue;
+  const long long C = (long long)H * DH;
+  if (dtype == 1) {
+    vda::flash::Params p{q8, k8, v, o, S, DH,
+                         S * C, DH, C, S * C, DH, C,
+                         v_sb, DH, v_ss, S * C, DH, C,
+                         1.f, 1.f, static_cast<const float*>(scales)};
+    return vda::flash::launch<DH, true>(dtype, p, B, H, st);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_qk8_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_F32);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + BQ - 1) / BQ, H, B);
+  attention_qk8_f32<<<grid, THREADS, SMEM_F32, st>>>(
+      static_cast<const int8_t*>(q8), static_cast<const int8_t*>(k8),
+      static_cast<const float*>(v), static_cast<const float*>(scales),
+      static_cast<float*>(o), S, H, v_sb, v_ss);
+  return (int)cudaGetLastError();
 }

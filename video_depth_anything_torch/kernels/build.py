@@ -92,7 +92,8 @@ def build_log() -> dict[str, str]:
     return dict(_LOG)
 
 
-SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS")   # wgmma, TMA loads, mbarrier operations
+# bf16 wgmma, int8 wgmma, mma.sync on bf16 / fp16, TMA loads, mbarrier operations
+SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "UTMALDG", "SYNCS")
 
 
 def sass_counts(name: str) -> dict[str, int]:

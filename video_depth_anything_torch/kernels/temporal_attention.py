@@ -9,19 +9,25 @@ q, k, v are contiguous ``[P, T, C]`` with head h owning channels
 ``[h*dh, (h+1)*dh)`` and T <= 32. q is pre-scaled by ``scale`` in its own
 dtype (the scale itself rounded to that dtype, as the JAX code does). A
 tensor on the CPU takes the plain version; a CUDA tensor launches the
-kernel or raises.
+kernel or raises. The bf16 kernel works on head dims in blocks of 8
+channels, up to 512: another head dim is padded with zero channels per
+head around the launch (they change no score, and their outputs are
+dropped).
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from ..ops.attention import mha, scale_in
 from . import build
 
 MAX_FRAMES = 32
+MAX_BF16_HEAD_DIM = 512   # two tiles of one head's q, k, v fill a block's shared memory
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ALIGN = 16   # bytes: the bf16 kernel moves 16-byte vectors
 
 
 def temporal_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -63,6 +69,18 @@ def _check(q, k, v, num_heads):
         raise ValueError(f"T={t} frames; the kernel takes 1..{MAX_FRAMES}")
     if c % num_heads:
         raise ValueError(f"C={c} not divisible by num_heads={num_heads}")
+    if q.dtype == torch.bfloat16 and c // num_heads > MAX_BF16_HEAD_DIM:
+        raise ValueError(f"head dim {c // num_heads}: the bf16 kernel takes head dims "
+                         f"up to {MAX_BF16_HEAD_DIM}")
+
+
+def pad_heads(x: torch.Tensor, num_heads: int, head_dim: int) -> torch.Tensor:
+    """[P, T, H*dh] -> contiguous [P, T, H*head_dim], each head's channels
+    followed by zeros."""
+    p, t, c = x.shape
+    dh = c // num_heads
+    return F.pad(x.reshape(p, t, num_heads, dh), (0, head_dim - dh)).reshape(
+        p, t, num_heads * head_dim)
 
 
 def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -74,14 +92,21 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"temporal_attention runs on cuda or cpu, not {q.device}")
     _check(q, k, v, num_heads)
     p, t, c = q.shape
-    out = torch.empty_like(q)
+    dh = c // num_heads
     if p == 0:
-        return out
+        return torch.empty_like(q)
+    if q.dtype == torch.bfloat16 and dh % 8:
+        dp = -(-dh // 8) * 8
+        out = temporal_attention(*(pad_heads(x, num_heads, dp) for x in (q, k, v)),
+                                 num_heads=num_heads, scale=scale)
+        return out.reshape(p, t, num_heads, dp)[..., :dh].reshape(p, t, c)
+    q, k, v = (x if x.data_ptr() % _ALIGN == 0 else x.clone() for x in (q, k, v))
+    out = torch.empty_like(q)
     fn = _bind()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), p, t, num_heads, c // num_heads,
+                 out.data_ptr(), p, t, num_heads, dh,
                  scale_in(q.dtype, scale), stream)
     if err != 0:
         raise RuntimeError(f"temporal_attention kernel launch failed: cudaError {err}")

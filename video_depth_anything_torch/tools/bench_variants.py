@@ -1,7 +1,7 @@
 """Card diagnosis of the wgmma kernels: build edited copies of their
 sources and time each beside the shipped one.
 
-    python -m video_depth_anything_torch.tools.bench_variants [rcu|attention|all]
+    python -m video_depth_anything_torch.tools.bench_variants [rcu|attention|qk8|temporal|all]
 
 Each variant is a list of text substitutions into a copy of ``csrc/``
 (under ``_build/variants/``, gitignored), compiled with the build's own
@@ -10,9 +10,11 @@ removes work (products, loads) computes a wrong result on purpose: its
 time says what the rest of the kernel costs, and its error is printed only
 to show the substitution took. No variant removes a wait that a pipeline's
 barrier phases depend on. Times are the mean of a run of launches between
-CUDA events (``tools/timing.py``), bf16, at K6's largest vitl shape
-(32, 148, 148, 256) and at K4's [32, 16, 1370, 64] and K1's main-path
-[22, 1814, 384]. Needs a CUDA card and exits 2 without one.
+CUDA events (``tools/timing.py``; K2's replayed from a CUDA graph), bf16, at K6's largest vitl shape
+(32, 148, 148, 256), at K4's [32, 16, 1370, 64] and K1's main-path
+[22, 1814, 384], at K3's main-path [22, 1814, 384] and at K2's four
+shapes of the main path, [7252, 32, 64], [1813, 32, 192], [475, 32, 384]
+and [1813, 32, 64]. Needs a CUDA card and exits 2 without one.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import sys
 import torch
 
 from ..kernels import build
+from .bench_wgmma import graph_ms
 from .timing import card_line, time_ms
 
 _WGMMA = ("wgmma_rs<NP, 0>(acc_a", "wgmma_rs<NP / 2, 0>(acc_b", "wgmma_rs<NP, 0>(acc, fa")
@@ -52,8 +55,8 @@ VARIANTS = {
         "shipped": ("both", []),
         "no ping-pong": ("both", [
             ("attention_flash.cuh", "  if (wg == 1) named_arrive(1, 256);\n", ""),
-            ("attention_flash.cuh", "  named_sync(1 + wg, 256);\n  fence_regs(s);",
-             "  fence_regs(s);"),
+            ("attention_flash.cuh", "  named_sync(1 + wg, 256);\n  fence_acc();",
+             "  fence_acc();"),
             ("attention_flash.cuh", "  if (wg == 0 || ntiles > 1) named_arrive(2 - wg, 256);\n",
              ""),
             ("attention_flash.cuh", "    named_sync(1 + wg, 256);       // this consumer's turn\n",
@@ -61,8 +64,39 @@ VARIANTS = {
             ("attention_flash.cuh", "    if (wg == 0 || t + 1 < ntiles) named_arrive(2 - wg, 256);"
              "   // the other's turn\n", "")]),
     },
+    "qk8": {
+        "shipped": ("spatial_attention_qk8", []),
+        "no exponentials": ("spatial_attention_qk8", [
+            ("attention_flash.cuh", "s[4 * n + e] = fast_exp2(fmaf(s[4 * n + e], sl2, neg[e >> 1]));",
+             "s[4 * n + e] = fmaf(s[4 * n + e], sl2, neg[e >> 1]);")]),
+        "4 stages": ("spatial_attention_qk8", [
+            ("attention_flash.cuh", "STAGES = DT == 128 ? 2 : 3;",
+             "STAGES = DT == 128 ? 2 : (QK8 ? 4 : 3);")]),
+        # Exact for |s| < 2^22: the bits of 1.5 * 2^23 plus s, less 1.5 * 2^23.
+        "scores by float bits": ("spatial_attention_qk8", [
+            ("attention_flash.cuh", "s[i] = static_cast<float>(static_cast<int>(si[i]));",
+             "s[i] = __int_as_float(static_cast<int>(si[i]) + 0x4B400000) - 12582912.f;")]),
+    },
+    "temporal": {
+        "shipped": ("temporal_attention", []),
+        "no compute": ("temporal_attention", [
+            ("temporal_attention.cu", "      if (g.split) head_attention<1>(",
+             "      if (true) {} else if (g.split) head_attention<1>(")]),
+        "no exponentials": ("temporal_attention", [
+            ("temporal_attention.cu",
+             "s[m][j][e] = fast_exp2(fmaf(s[m][j][e], LOG2E, neg[e >> 1]));",
+             "s[m][j][e] = fmaf(s[m][j][e], LOG2E, neg[e >> 1]);")]),
+        "stage 28 KB, 4 blocks": ("temporal_attention", [
+            ("temporal_attention.cu", "STAGE_MAX = 14000;", "STAGE_MAX = 28000;"),
+            ("temporal_attention.cu", "BLOCKS = 6;", "BLOCKS = 4;")]),
+        "stage 20 KB, 5 blocks": ("temporal_attention", [
+            ("temporal_attention.cu", "STAGE_MAX = 14000;", "STAGE_MAX = 20000;"),
+            ("temporal_attention.cu", "BLOCKS = 6;", "BLOCKS = 5;")]),
+    },
 }
-_LIBS = {"fused_rcu": ("fused_rcu",), "both": ("attention_head_major", "spatial_attention")}
+_LIBS = {"fused_rcu": ("fused_rcu",), "both": ("attention_head_major", "spatial_attention"),
+         "spatial_attention_qk8": ("spatial_attention_qk8",),
+         "temporal_attention": ("temporal_attention",)}
 
 
 def _build_variants(group: str) -> dict[str, dict[str, str]]:
@@ -131,9 +165,52 @@ def _time_attention(built, gen):
                   f"K1 [22, 1814, 384] {t1:.4f} ms", flush=True)
 
 
+@torch.no_grad()
+def _time_qk8(built, gen):
+    from ..kernels import spatial_attention_qk8 as k3
+
+    q8, k8 = (torch.randint(-127, 128, (22, 1814, 384), device="cuda", generator=gen,
+                            dtype=torch.int8) for _ in range(2))
+    v = torch.randn(22, 1814, 3 * 384, device="cuda", generator=gen).to(torch.bfloat16)[..., 768:]
+    scales = torch.tensor([1.6 / 127 / 8, 1.6 / 127], device="cuda")
+    ref = k3.spatial_attention_qk8_plain(q8, k8, v, scales, num_heads=6)
+    for rep in range(2):
+        for name, libs in built.items():
+            build._LIBS["spatial_attention_qk8"] = ctypes.CDLL(libs["spatial_attention_qk8"])
+            err = (k3.spatial_attention_qk8(q8, k8, v, scales, num_heads=6).float()
+                   - ref.float()).abs().max().item()
+            ms = time_ms(lambda: k3.spatial_attention_qk8(q8, k8, v, scales, num_heads=6), 30)
+            print(f"K3 [22, 1814, 384] {name:16s} (round {rep + 1}) {ms:.4f} ms "
+                  f"(max abs err {err:.3e})", flush=True)
+
+
+@torch.no_grad()
+def _time_temporal(built, gen):
+    from ..kernels import temporal_attention as k2
+
+    cases = []
+    for p, c in ((7252, 64), (1813, 192), (475, 384), (1813, 64)):
+        q, k, v = (torch.randn(p, 32, c, device="cuda", generator=gen).to(torch.bfloat16)
+                   for _ in range(3))
+        dh = c // 8
+        cases.append((q, k, v, dh, k2.temporal_attention_plain(q, k, v, num_heads=8,
+                                                                scale=dh ** -0.5)))
+    for rep in range(2):
+        for name, libs in built.items():
+            build._LIBS["temporal_attention"] = ctypes.CDLL(libs["temporal_attention"])
+            line = []
+            for q, k, v, dh, ref in cases:
+                err = (k2.temporal_attention(q, k, v, num_heads=8, scale=dh ** -0.5).float()
+                       - ref.float()).abs().max().item()
+                ms = graph_ms(lambda: k2.temporal_attention(q, k, v, num_heads=8,
+                                                            scale=dh ** -0.5), 30)
+                line.append(f"{list(q.shape)} {ms:.4f} ms (err {err:.1e})")
+            print(f"K2 {name:16s} (round {rep + 1}): " + ", ".join(line), flush=True)
+
+
 def main() -> int:
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if which not in ("rcu", "attention", "all"):
+    if which not in ("rcu", "attention", "qk8", "temporal", "all"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -143,7 +220,8 @@ def main() -> int:
     build.build_all()
     shipped = dict(build._LIBS)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for group, timer in (("rcu", _time_rcu), ("attention", _time_attention)):
+    for group, timer in (("rcu", _time_rcu), ("attention", _time_attention), ("qk8", _time_qk8),
+                         ("temporal", _time_temporal)):
         if which in (group, "all"):
             timer(_build_variants(group), gen)
             build._LIBS.update(shipped)

@@ -1,7 +1,8 @@
-"""Card microbench of the wgmma kernels: K1, K4 and K5 (the attention body
-``csrc/attention_flash.cuh``) and K6 (``csrc/fused_rcu.cu``) at the shapes
-of PERF.md's kernel table, each beside one PyTorch call of the same
-function and its bound.
+"""Card microbench of the redesigned kernels: K1, K3 (bf16 v), K4 and K5
+(the attention body ``csrc/attention_flash.cuh``), K6
+(``csrc/fused_rcu.cu``) and K2 (``csrc/temporal_attention.cu``) at the
+shapes of PERF.md's kernel table, each beside one PyTorch call of the
+same function and its bound.
 
     python -m video_depth_anything_torch.tools.bench_wgmma [--label L] [--json PATH]
 
@@ -12,9 +13,12 @@ and the checkout's own kernels are built and timed. To compare two trees
 on one card, run old, new, new, old in one session.
 
 Per shape it prints (and writes as JSON lines) the kernel's ms (mean of a
-run of launches between CUDA events, warm in L2), the library call's ms
-(SDPA; K6: relu, cuDNN conv, relu, cuDNN conv, add), the bound (the larger
-of the operations at the bf16 tensor-core peak and the bytes at the HBM
+run of launches between CUDA events, warm in L2 as far as the inputs fit
+its 50 MB; K2's launches replayed from a CUDA graph, as they take less
+card time than the host needs to launch them), the library call's ms (SDPA; K3: SDPA on q and k dequantized
+to bf16; K2: SDPA on the split heads; K6: relu, cuDNN conv, relu, cuDNN
+conv, add), the bound (the larger of the operations at their peak, bf16
+989 TFLOP/s and K3's int8 QK at 1979 TOP/s, and the bytes at the HBM
 rate) and the max abs error against the plain version. bf16 throughout.
 Needs a CUDA card and exits 2 without one.
 """
@@ -31,7 +35,8 @@ import torch.nn.functional as F
 if __package__ in (None, ""):   # run by path: the package of the working directory
     sys.path.insert(0, os.getcwd())
 
-from video_depth_anything_torch.tools.timing import bound_ms, card_line, time_ms  # noqa: E402
+from video_depth_anything_torch.tools.timing import (  # noqa: E402
+    PEAK_OPS, bound_ms, card_line, time_ms)
 
 ITERS = 20
 K1_SHAPES = [("main 518x686 cached", 22, 1814, 6), ("vits 518^2", 32, 1370, 6),
@@ -40,6 +45,39 @@ K4_SHAPES = [("dh 64", 32, 16, 1370, 64), ("dh 32", 32, 12, 1370, 32),
              ("dh 128 odd H", 16, 5, 1370, 128)]
 K5_SHAPES = [("vits 518^2", 32, 1370, 6), ("vitl 518^2", 32, 1370, 16)]
 K6_SHAPES = [(32, 148, 148, 256), (32, 74, 74, 256), (32, 37, 37, 256), (32, 19, 19, 256)]
+K3_SHAPES = [("main 518x686 cached", 22, 1814, 6), ("vits 518^2", 32, 1370, 6),
+             ("vitl 518^2", 32, 1370, 16)]
+# (label, pixels per window, C) of motion modules 0..3, 8 heads, T = 32.
+K2_FRAMES, K2_HEADS = 32, 8
+K2_SHAPES = [(f"{enc} m{i}", p, c) for enc, mods in (
+    ("vits 518^2", [(37 * 37, 192), (19 * 19, 384), (37 * 37, 64), (74 * 74, 64)]),
+    ("vitl 518^2", [(37 * 37, 1024), (19 * 19, 1024), (37 * 37, 256), (74 * 74, 256)]),
+    ("vits 518x686", [(37 * 49, 192), (19 * 25, 384), (37 * 49, 64), (74 * 98, 64)]))
+    for i, (p, c) in enumerate(mods)]
+
+
+# Here and not in tools/timing.py, so that this file times older trees too.
+def graph_ms(fn, iters: int, reps: int = 5) -> float:
+    """Mean ms per call over ``reps`` replays of a CUDA graph of ``iters``
+    calls of ``fn``, after two calls outside it (builds, first use): for a
+    call shorter than the host's cost of launching it through a wrapper
+    (about 0.03 ms), time_ms would time the host, not the card."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
 
 
 def _err(got, ref) -> float:
@@ -57,7 +95,9 @@ def bench(gen: torch.Generator) -> list[dict]:
     from video_depth_anything_torch.kernels import attention_head_major as k4
     from video_depth_anything_torch.kernels import fused_rcu as k6
     from video_depth_anything_torch.kernels import spatial_attention as k1
+    from video_depth_anything_torch.kernels import spatial_attention_qk8 as k3
     from video_depth_anything_torch.kernels import spatial_attention_qkv as k5
+    from video_depth_anything_torch.kernels import temporal_attention as k2
     from video_depth_anything_torch.tools import bench_rcu
 
     dt = torch.bfloat16
@@ -105,6 +145,41 @@ def bench(gen: torch.Generator) -> list[dict]:
         rows.append(_row("K6", f"{shape[1]}^2", shape, ms, lib, bench_rcu.flops(shape),
                          4 * x.numel(), err))
         del rcu, x, ops
+    # K3 as chip_smoke.py (c') drives it: random int8 q, k, v a column view
+    # of a fused qkv; its bound takes the int8 QK and the bf16 PV at their
+    # own peaks, one after the other.
+    scales = torch.tensor([1.6 / 127 / 8, 1.6 / 127], device="cuda")
+    for label, b, s, h in K3_SHAPES:
+        c = h * 64
+        q8, k8 = (torch.randint(-127, 128, (b, s, c), device="cuda", generator=gen,
+                                dtype=torch.int8) for _ in range(2))
+        v = torch.randn(b, s, 3 * c, device="cuda", generator=gen).to(dt)[..., 2 * c:]
+        err = _err(k3.spatial_attention_qk8(q8, k8, v, scales, num_heads=h),
+                   k3.spatial_attention_qk8_plain(q8, k8, v, scales, num_heads=h))
+        ms = time_ms(lambda: k3.spatial_attention_qk8(q8, k8, v, scales, num_heads=h), ITERS)
+        heads = [t.unflatten(-1, (h, 64)).transpose(1, 2)
+                 for t in (q8.to(dt) * scales[0].to(dt), k8.to(dt) * scales[1].to(dt), v)]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(*heads, scale=1.0), ITERS)
+        ops = 2 * b * h * s * s * 64
+        rows.append(_row("K3", label, [b, s, c], ms, lib,
+                         ops * (1 + PEAK_OPS["bfloat16"] / PEAK_OPS["int8"]),
+                         b * s * c * (2 + 2 * v.element_size()), err))
+        del q8, k8, v, heads
+    torch.cuda.empty_cache()
+    for label, p, c in K2_SHAPES:
+        t, h = K2_FRAMES, K2_HEADS
+        dh = c // h
+        q, k, v = (torch.randn(p, t, c, device="cuda", generator=gen).to(dt) for _ in range(3))
+        err = _err(k2.temporal_attention(q, k, v, num_heads=h, scale=dh ** -0.5),
+                   k2.temporal_attention_plain(q, k, v, num_heads=h, scale=dh ** -0.5))
+        # A CUDA graph of the calls: the smaller shapes take less card time
+        # than the host needs to launch them.
+        ms = graph_ms(lambda: k2.temporal_attention(q, k, v, num_heads=h, scale=dh ** -0.5), ITERS)
+        heads = [x.unflatten(-1, (h, dh)).transpose(1, 2) for x in (q, k, v)]
+        lib = graph_ms(lambda: F.scaled_dot_product_attention(*heads, scale=dh ** -0.5), ITERS)
+        rows.append(_row("K2", label, [p, t, c], ms, lib, 4 * p * t * t * c,
+                         4 * q.numel() * q.element_size(), err))
+        del q, k, v, heads
     torch.cuda.empty_cache()
     return rows
 
