@@ -13,11 +13,16 @@ printing no result, without either. Phases, each fatal on failure:
       kernel's registers and spills, and the counts of HGMMA (bf16 wgmma),
       IGMMA (int8 wgmma), HMMA (mma.sync), UTMALDG (TMA loads) and SYNCS
       (mbarrier) instructions in each library's SASS (cuobjdump -sass).
-      Fails if K1's, K4's or K6's library lacks HGMMA or UTMALDG, K3's
-      IGMMA or UTMALDG, K2's HMMA, or if cuobjdump is missing.
+      Fails if K1's, K4's, K6's, the option instances' (K1/K4/K5's
+      mxu_denom and exp2), T1's or T2's library lacks HGMMA or UTMALDG,
+      K3's IGMMA or UTMALDG, K2's or T3's HMMA, if T2's has HMMA (it is
+      the body's instance), or if cuobjdump is missing.
   (c) K1 spatial attention against its plain version, bf16 and fp32, at
       the encoders' shapes (strided views of a fused qkv, as the model
-      passes them).
+      passes them); then the switches: K1 with mxu_denom, exp2 and both,
+      K4 and K5 with mxu_denom, each against its plain version with the
+      same switches, K1's times at the main path's shape beside the
+      default's.
   (c') K3 int8-QK spatial attention against its plain version, bf16 and
       fp32 v, at the same shapes (random int8 q and k, v a column view of
       a fused qkv), and its odd-head fallback (K1 on dequantized q, k).
@@ -64,8 +69,10 @@ printing no result, without either. Phases, each fatal on failure:
       (tools/bench_kernel_phases.py probes and variants,
       tools/bench_kernel_ab.py probes, variants and others) with launch
       counts read around them, each kernel's time beside its bound and
-      library time, and T1's qk64x2 time held to at least half of T3's
-      (the same products: less means work was dropped).
+      library time. Dropped products fail it: T1's qk64x2 and qk128 may
+      not run faster than their operations bound, and qk64x2 with its sink
+      (every key tile's scores stored) may take at most 1.15x its time
+      without. T2 stagger must equal K1 mxu_denom=True bit for bit.
   (f) timing: one window forward at 1x32x518x518 in bf16 and in int8,
       vits and vitl, and the cached steady state per new frame for vits;
       then a torch.profiler breakdown of the vits window by kernel kind,
@@ -98,8 +105,14 @@ PROBE_MARGIN_S = 0.05                   # marginal card time per tool timing in 
 SASS_REQUIRED = {"fused_rcu": ("HGMMA", "UTMALDG"),
                  "spatial_attention": ("HGMMA", "UTMALDG"),
                  "attention_head_major": ("HGMMA", "UTMALDG"),
+                 "attention_switches": ("HGMMA", "UTMALDG"),
                  "spatial_attention_qk8": ("IGMMA", "UTMALDG"),
-                 "temporal_attention": ("HMMA",)}
+                 "temporal_attention": ("HMMA",),
+                 "phase_probes": ("HGMMA", "UTMALDG"),
+                 "attention_variants": ("HGMMA", "UTMALDG"),
+                 "qk_probes": ("HMMA",)}
+# T2 is the attention body's instance: no mma.sync of its own.
+SASS_ABSENT = {"attention_variants": ("HMMA",)}
 # Max abs error against the plain version. The spatial kernels' outputs
 # are near-uniform averages of unit-normal v over 1370-1814 keys (mean |o|
 # about 0.03, max 0.2 to 0.7), so bf16 is held to 4e-3: a few times the
@@ -194,6 +207,71 @@ def check_k1(gen, record):
                                 library_ms=lib, bound_ms=bms, bound_by=by)
             del qkv, q, k, v
     return main
+
+
+def check_switches(gen, record):
+    """(c), the switches: K1 with mxu_denom, exp2 and both at the main
+    path's and vitl's shapes, K4 (head-major dh 64 and 32) and K5 (vits)
+    with mxu_denom, bf16 and fp32, each against its plain version with the
+    same switches; returns K1's times at the main path's shape in bf16."""
+    import torch
+    from video_depth_anything_torch.kernels import attention_head_major as k4
+    from video_depth_anything_torch.kernels import spatial_attention as k1
+    from video_depth_anything_torch.kernels import spatial_attention_qkv as k5
+
+    times = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[1]
+        for label, b, s, h in (("vits 518x686 cached", 22, 1814, 6), ("vitl 518^2", 32, 1370, 16)):
+            c = h * 64
+            qkv = torch.randn(b, s, 3 * c, device="cuda", generator=gen).to(dt)
+            q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+            for sw in (dict(), dict(mxu_denom=True), dict(exp2=True),
+                       dict(mxu_denom=True, exp2=True)):
+                def run(sw=sw):
+                    return k1.spatial_attention(q, k, v, num_heads=h, scale=0.125, **sw)
+
+                line = f"K1 {name:8s} {label:20s} {'+'.join(sw) or 'default':15s}"
+                if sw:
+                    got = run()
+                    ref = k1.spatial_attention_plain(q, k, v, num_heads=h, scale=0.125, **sw)
+                    torch.cuda.synchronize()
+                    err, ok, said = held("spatial_attention", name, got, ref)
+                    line += f" {said}"
+                    if not ok:
+                        raise AssertionError(f"{line}")
+                    record("spatial_attention", name, err)
+                if name == "bfloat16" and label.endswith("cached"):
+                    times["+".join(sw) or "default"] = ms = time_ms(run, 20)
+                    line += f" kernel {ms:.4f} ms"
+                print(line, flush=True)
+            del qkv, q, k, v
+        for label, b, h, s, d in (("head-major", 32, 16, 1370, 64),
+                                  ("head-major dh 32", 32, 12, 1370, 32)):
+            q, k, v = (torch.randn(b, h, s, d, device="cuda", generator=gen).to(dt)
+                       for _ in range(3))
+            got = k4.attention_head_major(q, k, v, scale=d ** -0.5, mxu_denom=True)
+            ref = k4.attention_head_major_plain(q, k, v, scale=d ** -0.5, mxu_denom=True)
+            torch.cuda.synchronize()
+            err, ok, said = held("attention_head_major", name, got, ref)
+            print(f"K4 {name:8s} {label:20s} mxu_denom [{b},{h},{s},{d}]: {said}", flush=True)
+            if not ok:
+                raise AssertionError(f"K4 {name} {label} mxu_denom: {said}")
+            record("attention_head_major", name, err)
+            del q, k, v
+        qkv = torch.randn(32, 1370, 3 * 384, device="cuda", generator=gen).to(dt)
+        qkv[..., :384] *= 0.125
+        got = k5.spatial_attention_qkv_fused(qkv, num_heads=6, mxu_denom=True)
+        ref = k5.spatial_attention_qkv_fused_plain(qkv, num_heads=6, mxu_denom=True)
+        torch.cuda.synchronize()
+        err, ok, said = held("spatial_attention_qkv_fused", name, got, ref)
+        print(f"K5 {name:8s} vits 518^2 mxu_denom [32,1370,1152]: {said}", flush=True)
+        if not ok:
+            raise AssertionError(f"K5 {name} mxu_denom: {said}")
+        record("spatial_attention_qkv_fused", name, err)
+        del qkv
+    torch.cuda.empty_cache()
+    return times
 
 
 def check_k3(gen, record):
@@ -521,6 +599,7 @@ def check_probes(record):
     h = phases.H
     ref = t2.attention_variant_plain(*var_in, num_heads=h)
     k1_out = k1.spatial_attention(*var_in, num_heads=h, scale=phases.DH ** -0.5)
+    k1_mxu = k1.spatial_attention(*var_in, num_heads=h, scale=phases.DH ** -0.5, mxu_denom=True)
     for sched in t2.SCHEDULES:
         got = t2.attention_variant(*var_in, num_heads=h, schedule=sched)
         torch.cuda.synchronize()
@@ -530,8 +609,13 @@ def check_probes(record):
         fail_over(f"T2 {sched} against K1 on the same inputs", err_of(got, k1_out),
                   2 ** -6 * k1_out.float().abs().max().item(), k1_out)
         record("attention_variants", "bfloat16", err)
+        if sched == "stagger":   # the body's instance that K1 runs with mxu_denom=True
+            same = torch.equal(got, k1_mxu)
+            print(f"T2 stagger equals K1 mxu_denom=True bit for bit: {same}", flush=True)
+            if not same:
+                raise AssertionError("T2 stagger differs from K1 mxu_denom=True")
     plain["T2"] = time_ms(lambda: t2.attention_variant_plain(*var_in, num_heads=h), 2, 1)
-    del ref, k1_out, got
+    del ref, k1_out, k1_mxu, got
     torch.cuda.empty_cache()
     print("plain versions, ms: " + ", ".join(f"{n} {t:.3f}" for n, t in plain.items()),
           flush=True)
@@ -562,11 +646,20 @@ def probe_path(cardname, inputs, plain):
     if not all(launches[n] > 0 for n in ("phase_probes", "attention_variants", "qk_probes")):
         raise AssertionError(f"a measurement kernel was not launched on the tools' path: "
                              f"{launches}")
-    ratio = t1["qk64x2"]["ms"] / t3["qk64 x2heads"]["ms"]
-    print(f"T1 qk64x2 / T3 qk64 x2heads = {ratio:.3f} (the same products; at least 0.5, or "
-          f"T1's products were dropped)", flush=True)
-    if not ratio >= 0.5:
-        raise AssertionError(f"T1 qk64x2 runs at {ratio:.3f} of T3's time: work was dropped")
+    # Dropped products: a QK probe faster than its operations bound, or
+    # qk64x2 much faster without its sink (the sink reads every key tile's
+    # scores) than with it.
+    for name in ("qk64x2", "qk128"):
+        r = t1[name]
+        print(f"T1 {name} {r['ms']:.4f} ms against its operations bound {r['ops_ms']:.4f} ms",
+              flush=True)
+        if r["ms"] < r["ops_ms"]:
+            raise AssertionError(f"T1 {name} runs under its operations bound: products dropped")
+    sink = t1["derived"]["sink_over_plain"]
+    print(f"T1 qk64x2 with its sink / without: {sink:.3f} (at most 1.15)", flush=True)
+    if not sink <= 1.15:
+        raise AssertionError(f"T1 qk64x2 with its sink takes {sink:.3f}x its time without: "
+                             f"products were dropped")
     qk_main, t3_main, t2_main = t1["qk64x2"], t3["qk64 x2heads"], t2["base"]
     entries = {
         "phase_probes": dict(
@@ -575,16 +668,17 @@ def probe_path(cardname, inputs, plain):
             bound_by=qk_main["bound_by"], library_ms=None,
             library="none: no one PyTorch call computes the narrowed output",
             probes={n: dict(ms=r["ms"], us_per_step=r["us_per_step"], bound_ms=r["bound_ms"],
-                            bound_by=r["bound_by"], plain_ms=plain["T1 " + n])
+                            bound_by=r["bound_by"], plain_ms=plain["T1 " + n.split(" sink")[0]])
                     for n, r in t1.items() if n != "derived"},
-            derived=t1["derived"], qk64x2_over_t3=ratio),
+            derived=t1["derived"]),
         "attention_variants": dict(
             shape=[phases.B, phases.S, phases.H * phases.DH], heads=phases.H, dtype="bfloat16",
             ms=t2_main["ms"], plain_ms=plain["T2"], bound_ms=t2_main["bound_ms"],
             bound_by=t2_main["bound_by"], library_ms=t2["sdpa"]["ms"],
-            schedules={n: dict(ms=t2[n]["ms"], err_vs_k1=t2[n]["err_vs_k1"])
+            schedules={n: dict(ms=t2[n]["ms"], err_vs_k1=t2[n]["err_vs_k1"],
+                               err_vs_k1_mxu_denom=t2[n]["err_vs_k1_mxu_denom"])
                        for n in ("base", "stagger", "kchunk")},
-            k1_ms=t2["prod"]["ms"]),
+            k1_ms=t2["prod"]["ms"], k1_mxu_denom_ms=t2["prod mxu_denom"]["ms"]),
         "qk_probes": dict(
             shape=[phases.QK_STEPS, phases.S_PAD, 128], dtype="bfloat16", ms=t3_main["ms"],
             plain_ms=plain["T3 qk64 x2heads"], bound_ms=t3_main["bound_ms"],
@@ -594,7 +688,9 @@ def probe_path(cardname, inputs, plain):
                             plain_ms=plain["T3 " + n]) for n in ("qk64 x2heads", "qk128 x1")},
             ratio=t3["ratio"]),
     }
-    print(f"tool rows, ms: K1 prod {ab_prod['prod']['ms']:.3f} (sdpa {ab_prod['sdpa']['ms']:.3f}), "
+    print(f"tool rows, ms: K1 prod {ab_prod['prod']['ms']:.3f}, mxu_denom "
+          f"{ab_prod['prod mxu_denom']['ms']:.3f}, exp2 {ab_prod['exp2']['ms']:.3f} "
+          f"(sdpa {ab_prod['sdpa']['ms']:.3f}), "
           + ", ".join(f"{n} {r['ms']:.3f} (sdpa {r['sdpa_ms']:.3f})" for n, r in others.items()),
           flush=True)
     del inputs
@@ -928,8 +1024,8 @@ def breakdown(cardname, mode="bf16"):
         return
     # First match wins: cuDNN's convolutions are named "..._implicit_gemm",
     # and cuBLAS's Hopper GEMMs "nvjet_...".
-    # K3 in bf16 is the flash body's int8-QK instance, attention_bf16<64, true>.
-    kinds = (("K3 spatial_attention_qk8", ("attention_qk8", "attention_bf16<64, true>")),
+    # K3 in bf16 is the flash body's int8-QK instance, attention_bf16<64, true, ...>.
+    kinds = (("K3 spatial_attention_qk8", ("attention_qk8", "attention_bf16<64, true")),
              ("K1 spatial_attention", ("attention_bf16", "attention_f32")),
              ("K2 temporal_attention", ("temporal_attention", "temporal_bf16", "temporal_f32")),
              ("convolution", ("fprop", "conv", "Conv", "winograd", "cudnn")),
@@ -979,6 +1075,10 @@ def main() -> int:
         if missing:
             raise AssertionError(f"{name}: no {', '.join(missing)} in its SASS; the design "
                                  f"runs on them")
+    for name, ops in SASS_ABSENT.items():
+        present = [op for op in ops if sass[name][op] > 0]
+        if present:
+            raise AssertionError(f"{name}: {', '.join(present)} in its SASS; the design has none")
 
     errs: dict = {}
 
@@ -987,6 +1087,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1 = check_k1(gen, record)
+    k1["switches_ms"] = check_switches(gen, record)
     k3 = check_k3(gen, record)
     k4 = check_k4(gen, record)
     k5, launches_k5 = check_k5(gen, record)
@@ -1035,7 +1136,7 @@ def main() -> int:
             replaces="video_depth_anything_tpu/ops/pallas_conv.py:125", main=k6,
             path=launches_k6),
         "phase_probes": dict(
-            source="video_depth_anything_torch/csrc/qk_probes.cu",
+            source="video_depth_anything_torch/csrc/phase_probes.cu",
             replaces="tools/bench_kernel_phases.py:140", main=probe_entries["phase_probes"],
             path=launches_tools),
         "attention_variants": dict(
@@ -1065,7 +1166,11 @@ def main() -> int:
             "bound_by": e["bound_by"], "library_ms": e["library_ms"],
             "shape": e["shape"], "heads": e.get("heads"), "dtype": e["dtype"],
             **{key: e[key] for key in ("library", "probes", "schedules", "derived",
-                                       "qk64x2_over_t3", "ratio", "k1_ms") if key in e},
+                                       "ratio", "k1_ms", "k1_mxu_denom_ms", "switches_ms")
+               if key in e},
+            **({"options_source": "video_depth_anything_torch/csrc/attention_switches.cu"}
+               if name in ("spatial_attention", "attention_head_major",
+                           "spatial_attention_qkv_fused") else {}),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(cardname, flush=True)

@@ -428,3 +428,71 @@ def test_k2_frames_and_head_dims_match_plain_version(card, t, dh):
         ref = k2.temporal_attention_plain(q, k, v, num_heads=8, scale=dh ** -0.5)
         assert got.shape == q.shape and _bf16_err_ok(got, ref, tol)
     assert kernels.launch_counts() == counts(temporal_attention=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 63, 65, 129, 1370])
+def test_attention_switches_match_plain_versions(card, s):
+    """The body's option instances: K1 with mxu_denom, exp2 and both, K5
+    with mxu_denom, K4 with mxu_denom at head dims below their tile (8 of
+    16, 40 of 64, 72 of 128) and at 32, each against its plain version
+    with the same switches, at the sequence edges of the default
+    instances' test; bf16 at its tolerances there, fp32 at 1e-4."""
+    kernels.reset_launch_counts()
+    for dt in (torch.bfloat16, torch.float32):
+        tol = 1e-4 if dt == torch.float32 else (4e-3 if s > 1000 else 2e-2)
+        qkv = torch.randn(2, s, 3 * 192, device="cuda", generator=card).to(dt)
+        q, k, v = qkv[..., :192], qkv[..., 192:384], qkv[..., 384:]
+        for mxu_denom, exp2 in ((True, False), (False, True), (True, True)):
+            got = k1.spatial_attention(q, k, v, num_heads=3, scale=0.125, mxu_denom=mxu_denom,
+                                       exp2=exp2)
+            ref = k1.spatial_attention_plain(q, k, v, num_heads=3, scale=0.125,
+                                             mxu_denom=mxu_denom, exp2=exp2)
+            assert _bf16_err_ok(got, ref, tol), (dt, mxu_denom, exp2)
+        qkv[..., :192] *= 0.125
+        assert _bf16_err_ok(k5.spatial_attention_qkv_fused(qkv, num_heads=3, mxu_denom=True),
+                            k5.spatial_attention_qkv_fused_plain(qkv, num_heads=3,
+                                                                 mxu_denom=True), tol)
+        for h, d in ((5, 8), (3, 40), (3, 72), (5, 32)):
+            q, k, v = (torch.randn(2, h, s, d, device="cuda", generator=card).to(dt)
+                       for _ in range(3))
+            assert _bf16_err_ok(k4.attention_head_major(q, k, v, scale=d ** -0.5, mxu_denom=True),
+                                k4.attention_head_major_plain(q, k, v, scale=d ** -0.5,
+                                                              mxu_denom=True), tol), (dt, d)
+    assert kernels.launch_counts() == counts(spatial_attention=6, spatial_attention_qkv_fused=2,
+                                             attention_head_major=8)
+    x = torch.zeros(2, 10, 64, device="cuda")
+    with pytest.raises(ValueError, match="exp2"):    # dh 32 goes to K4, which has no exp2
+        k1.spatial_attention(x, x, x, num_heads=2, scale=0.125, exp2=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [130, 200, 1370])
+def test_t2_stagger_is_k1_with_mxu_denom_bit_for_bit(card, s):
+    """T2's stagger schedule is the body's instance K1 runs with
+    mxu_denom=True; q pre-scaled by 1/8 and the scores scaled by 1/8 differ
+    by a power of two only, so the outputs agree bit for bit."""
+    q, k, v = (0.3 * torch.randn(2, s, 256, device="cuda", generator=card)
+               for _ in range(3))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    got = t2.attention_variant(q, k, v, num_heads=4, schedule="stagger")
+    want = k1.spatial_attention(q, k, v, num_heads=4, scale=0.125, mxu_denom=True)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_t1_sink_changes_no_output(card):
+    """The wgmma QK probes keep accumulating every key tile behind the sink
+    pointer; passing it changes no output, and qk64x2 at the tools' row and
+    key counts (1408, 11 key tiles) matches its plain version."""
+    def uniform(*shape):
+        return (torch.rand(shape, device="cuda", generator=card) - 0.5).to(torch.bfloat16)
+
+    q, k = uniform(2, 1408, 128), uniform(2, 1408, 128)
+    kernels.reset_launch_counts()
+    for name, heads in (("qk64x2", 2), ("qk128", 1)):
+        plain = qp.phase_probe(name, q, k)
+        assert torch.equal(qp.phase_probe(name, q, k, sink=True), plain)
+        ref = qp.qk_first128_plain(q, k, heads=heads)
+        assert (plain.float() - ref.float()).abs().max() <= 2 ** -7 * ref.float().abs().max()
+    assert kernels.launch_counts() == counts(phase_probes=4)

@@ -306,3 +306,91 @@ def test_head_major_check_rejects_what_k4_does_not_take():
     with pytest.raises(ValueError, match="innermost stride"):
         z = torch.zeros(2, 3, 32, 10).transpose(2, 3)
         k4._check(z, z, z, z)
+
+
+# The switches. JAX's two mxu_denom settings compute one function (both sum
+# the probabilities after their cast to v's dtype: pallas_attention.py:113
+# before :119, :397 before :413), which is the port's mxu_denom=True; so the
+# port's plain versions with mxu_denom=True are held to the Pallas bodies
+# in interpret mode under both JAX settings. S = 130 pads to 256 keys on
+# the TPU side, S = 256 does not. bf16 within 4e-3, fp32 within 1e-5.
+SWITCH_DTYPES = [(torch.float32, jnp.float32, 1e-5), (torch.bfloat16, jnp.bfloat16, 4e-3)]
+
+
+def _switch_inputs(shape, seed, dtype, jdt):
+    x = [_rand(shape, seed + i) for i in range(3)]
+    return [torch.from_numpy(a).to(dtype) for a in x], [jnp.asarray(a, jdt) for a in x]
+
+
+def _held(got, want, tol):
+    err = np.abs(got.float().numpy() - np.asarray(want, np.float32)).max()
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("s", [130, 256])
+@pytest.mark.parametrize("jax_mxu_denom", [True, False])
+@pytest.mark.parametrize("dtype,jdt,tol", SWITCH_DTYPES)
+def test_k1_mxu_denom_plain_matches_jax_interpret(s, jax_mxu_denom, dtype, jdt, tol):
+    (q, k, v), (qj, kj, vj) = _switch_inputs((2, s, 4 * 64), 80, dtype, jdt)
+    kernels.reset_launch_counts()
+    got = k1.spatial_attention(q, k, v, num_heads=4, scale=0.125, mxu_denom=True)
+    assert kernels.launch_counts()["spatial_attention"] == 0   # CPU: plain version
+    want = flash_attention_packed(qj, kj, vj, num_heads=4, scale=0.125,
+                                  mxu_denom=jax_mxu_denom, interpret=True)
+    _held(got, want, tol)
+
+
+@pytest.mark.parametrize("s", [130, 256])
+@pytest.mark.parametrize("jax_mxu_denom", [True, False])
+@pytest.mark.parametrize("dtype,jdt,tol", SWITCH_DTYPES)
+def test_k4_mxu_denom_plain_matches_jax_interpret(s, jax_mxu_denom, dtype, jdt, tol):
+    """dh 32: JAX's ones column fits the matrix unit's 128 lanes (2 d <= 128)."""
+    (q, k, v), (qj, kj, vj) = _switch_inputs((2, 3, s, 32), 84, dtype, jdt)
+    got = k4.attention_head_major(q, k, v, scale=32 ** -0.5, mxu_denom=True)
+    want = flash_attention(qj, kj, vj, scale=32 ** -0.5, mxu_denom=jax_mxu_denom, interpret=True)
+    _held(got, want, tol)
+
+
+@pytest.mark.parametrize("s", [130, 256])
+@pytest.mark.parametrize("jax_mxu_denom", [True, False])
+@pytest.mark.parametrize("dtype,jdt,tol", SWITCH_DTYPES)
+def test_k5_mxu_denom_plain_matches_jax_interpret(s, jax_mxu_denom, dtype, jdt, tol):
+    q, k, v = (_rand((2, s, 4 * 64), 88 + i) for i in range(3))
+    qkv = np.concatenate([q * 0.125, k, v], axis=-1)
+    got = k5.spatial_attention_qkv_fused(torch.from_numpy(qkv).to(dtype), num_heads=4,
+                                         mxu_denom=True)
+    want = flash_attention_qkv_fused(jnp.asarray(qkv, jdt), num_heads=4,
+                                     mxu_denom=jax_mxu_denom, interpret=True)
+    _held(got, want, tol)
+
+
+@pytest.mark.parametrize("s", [130, 256])
+@pytest.mark.parametrize("dtype,jdt,tol", SWITCH_DTYPES)
+def test_k1_exp2_plain_matches_jax_interpret(s, dtype, jdt, tol):
+    """exp2: q pre-scaled in its dtype by scale * log2(e), base-2
+    exponentials; with JAX's default denominator (the port's mxu_denom)."""
+    (q, k, v), (qj, kj, vj) = _switch_inputs((2, s, 4 * 64), 92, dtype, jdt)
+    got = k1.spatial_attention(q, k, v, num_heads=4, scale=0.125, exp2=True, mxu_denom=True)
+    want = flash_attention_packed(qj, kj, vj, num_heads=4, scale=0.125, exp2=True,
+                                  interpret=True)
+    _held(got, want, tol)
+
+
+def test_exp2_switch_is_live_in_bf16():
+    """In bf16, bf16(0.125 * log2(e)) rounds, so exp2=True changes outputs
+    (as it does in JAX); in fp32 the two agree to rounding."""
+    x = [torch.from_numpy(_rand((2, 130, 4 * 64), 96 + i)) for i in range(3)]
+    for dtype, live in ((torch.bfloat16, True), (torch.float32, False)):
+        a, b = (k1.spatial_attention(*(t.to(dtype) for t in x), num_heads=4, scale=0.125,
+                                     exp2=e) for e in (True, False))
+        err = (a.float() - b.float()).abs().max().item()
+        assert (err > 1e-3) if live else (err < 1e-5), (dtype, err)
+
+
+def test_exp2_takes_head_dim_64_only():
+    """JAX's head-dim fallback (flash_attention) has no exp2: dh 32 raises,
+    on the CPU as on the card."""
+    x = torch.zeros(2, 10, 64)
+    with pytest.raises(ValueError, match="exp2"):
+        k1.spatial_attention(x, x, x, num_heads=2, scale=0.125, exp2=True)
+    k1.spatial_attention(x, x, x, num_heads=2, scale=0.125, mxu_denom=True)   # K4 takes it

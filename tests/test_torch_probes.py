@@ -187,14 +187,35 @@ def test_t2_plain_is_k1_plain_in_fp32():
                                rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_t2_plain_is_k1_plain_with_mxu_denom(dtype):
+    """T2's function is K1's with the rounded-p denominator (mxu_denom=True)
+    at scale 1/8, a power of two: fp32 within 1e-6, bf16 within one bf16
+    step of max |o|."""
+    tdt = DTYPES[dtype][1]
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 130, 256)).astype(np.float32)).to(tdt)
+               for _ in range(3))
+    got = t2.attention_variant_plain(q, k, v, num_heads=4).float().numpy()
+    want = spatial_attention_plain(q, k, v, num_heads=4, scale=0.125,
+                                   mxu_denom=True).float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    else:
+        _assert_held(got, want, dtype)
+
+
 def test_kernel_checks_reject_what_the_kernels_do_not_take():
     """The checks run before any build: fp32, ragged rows and strided
     operands raise (no plain fallback on the card)."""
     q = torch.zeros(2, 128, 128)
     with pytest.raises(TypeError, match="bfloat16"):
-        qp._launch_qk(0, q, q, q, None)
+        qp._launch_t1(0, q, q, q, None, None)
     with pytest.raises(ValueError, match="M % 64"):
-        qp._launch_qk(0, torch.zeros(2, 100, 128, dtype=torch.bfloat16), q.bfloat16(), q, None)
+        qp._launch_t1(0, torch.zeros(2, 100, 128, dtype=torch.bfloat16), q.bfloat16(), q, None,
+                      None)
+    with pytest.raises(TypeError, match="bfloat16"):
+        qp._launch_qk(2, q, q, q)
     p = torch.zeros(1, 64, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="contiguous"):
         qp._launch_pv(p, p.transpose(1, 2), torch.zeros(1, 64, 128, dtype=torch.bfloat16), p)
@@ -207,6 +228,8 @@ def test_kernel_checks_reject_what_the_kernels_do_not_take():
         t2.attention_variant(x, x, x, num_heads=2, schedule="exp2")
     with pytest.raises(ValueError, match="side sum"):
         qp.phase_probe("qk128", q, q, side=True)
+    with pytest.raises(ValueError, match="sink"):
+        qp.phase_probe("qk+sm x2", q, q, sink=True)
 
 
 @pytest.mark.parametrize("tool", [bench_kernel_phases, bench_kernel_ab])

@@ -6,7 +6,9 @@
 // Computes, per (batch, head): softmax(q' k^T) v with q' = q * scale
 // rounded to q's dtype (the JAX wrapper's pre-scale), fp32 scores, fp32
 // row max / sum and fp32 accumulation, the unnormalised probabilities
-// rounded to the value dtype for the PV product. q, k, v and o are read
+// rounded to the value dtype for the PV product, the denominator summing
+// the fp32 probabilities (mxu_denom: attention_switches.cu). q, k, v and o
+// are read
 // and written through their batch, head and row strides (innermost stride
 // 1): contiguous [B, H, S, D] tensors, or split-head views [B, S, H, D] ->
 // [B, H, S, D] of a [B, S, H*D] projection and of the [B, S, H*D] output.

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives shared by the wgmma kernels: K1/K3/K4/K5's
-// attention body (attention_flash.cuh) and K6 (fused_rcu.cu). Inline PTX
-// only; each .cu that includes it compiles on its own.
+// attention body (attention_flash.cuh, also T2's), K6 (fused_rcu.cu) and
+// the phase probes T1 (phase_probes.cu). Inline PTX only; each .cu that
+// includes it compiles on its own.
 //
 //   - wgmma.mma_async bf16 -> fp32, A from registers (rs) or shared memory
 //     (ss), and s8 x s8 -> s32 with both operands from shared memory, with
@@ -89,6 +90,19 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 // One wrapper per width N: wgmma names each accumulator register in its
 // operand list. TA / TB are the transpose bits (1 = MN-major operand).
 template <int TB>
+__device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
 __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
                                               uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -164,6 +178,27 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TB));
 }
 
+// d (64 x 64) += A (64 x 16) * B (16 x 64), both by descriptor.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 // d (64 x 128) += A (64 x 16) * B (16 x 128), both by descriptor.
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
@@ -230,7 +265,8 @@ __device__ __forceinline__ void wgmma_ss_n128_s8(uint32_t (&d)[64], uint64_t des
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t desc_b, int scale_d) {
-  if constexpr (N == 16) wgmma_rs_n16<TB>(d, a, desc_b, scale_d);
+  if constexpr (N == 8) wgmma_rs_n8<TB>(d, a, desc_b, scale_d);
+  else if constexpr (N == 16) wgmma_rs_n16<TB>(d, a, desc_b, scale_d);
   else if constexpr (N == 32) wgmma_rs_n32<TB>(d, a, desc_b, scale_d);
   else if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, desc_b, scale_d);
   else if constexpr (N == 128) wgmma_rs_n128<TB>(d, a, desc_b, scale_d);

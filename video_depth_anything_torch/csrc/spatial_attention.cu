@@ -4,7 +4,9 @@
 //   flash_attention_packed (its Pallas body _packed_kernel).
 // Computes, per (batch, head): softmax(q k^T * scale) v with fp32 scores,
 // fp32 row max / sum and fp32 output accumulation; the unnormalised
-// probabilities are rounded to the value dtype for the PV product. q, k, v
+// probabilities are rounded to the value dtype for the PV product; the
+// denominator sums the fp32 probabilities. (The JAX kernel's mxu_denom and
+// exp2 options run the body's other instances, attention_switches.cu.) q, k, v
 // are [B, S, H*64] views read in place with their own batch and row strides
 // (the fused qkv projection output [B, S, 3C] is passed as three column
 // views, no copy); the output is a contiguous [B, S, H*64].

@@ -14,6 +14,11 @@ own dtype (the scale rounded to that dtype, then the product), and the
 scores take no further scale. Unlike it, the kernel streams its keys, so
 S has no limit (the JAX wrapper sends S > 8448 to XLA). A tensor on the
 CPU takes the plain version; a CUDA tensor launches the kernel or raises.
+
+``mxu_denom=True`` sums the softmax denominator from the probabilities
+rounded to v's dtype, as the JAX kernel does with either of its
+``mxu_denom`` settings; ``False`` (the default, the model's) sums the fp32
+ones, the port's own choice (see ``kernels/spatial_attention.py``).
 """
 from __future__ import annotations
 
@@ -30,15 +35,18 @@ _ALIGN = 16  # bytes: the kernel moves 16-byte vectors
 
 
 def attention_head_major_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                               *, scale: float) -> torch.Tensor:
+                               *, scale: float, mxu_denom: bool = False) -> torch.Tensor:
     """The kernel's function in plain PyTorch: q pre-scaled in its dtype,
     then fp32 scores, softmax and accumulation, unnormalised probabilities
     rounded to v's dtype."""
-    return mha(q * scale_in(q.dtype, scale), k, v, 1.0)
+    return mha(q * scale_in(q.dtype, scale), k, v, 1.0, mxu_denom=mxu_denom)
 
 
-def _bind():
-    fn = build.library("attention_head_major").vda_attention_head_major
+def _bind(mxu_denom: bool = False):
+    """The default entry, or that of the mxu_denom instances, which live in
+    a library of their own (``csrc/attention_switches.cu``)."""
+    fn = (build.library("attention_switches").vda_attention_head_major_ones if mxu_denom
+          else build.library("attention_head_major").vda_attention_head_major)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p])
@@ -69,7 +77,8 @@ def _check(q, k, v, out):
 
 
 def attention_head_major(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         scale: float, out: torch.Tensor | None = None) -> torch.Tensor:
+                         scale: float, out: torch.Tensor | None = None,
+                         mxu_denom: bool = False) -> torch.Tensor:
     """Multi-head attention on [B, H, S, D] -> [B, H, S, D].
 
     With ``out`` (a [B, H, S, D] view with unit innermost stride, such as
@@ -77,7 +86,7 @@ def attention_head_major(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``out`` is returned; otherwise into a new contiguous tensor.
     """
     if q.device.type == "cpu":
-        o = attention_head_major_plain(q, k, v, scale=scale)
+        o = attention_head_major_plain(q, k, v, scale=scale, mxu_denom=mxu_denom)
         return o if out is None else out.copy_(o)
     if q.device.type != "cuda":
         raise RuntimeError(f"attention_head_major runs on cuda or cpu, not {q.device}")
@@ -87,7 +96,7 @@ def attention_head_major(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, h, s, d = q.shape
     if q.numel() == 0:
         return out
-    fn = _bind()
+    fn = _bind(mxu_denom)
     strides = [x for t in (q, k, v, out) for x in t.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -11,9 +11,12 @@ bound and design, is ``csrc/attention_variants.cu``.
 The function, as the tool defines it: q, k, v ``[B, S, H*64]``; q
 pre-scaled by 64^-0.5 in its own dtype; fp32 scores; p = exp(s - rowmax)
 rounded to v's dtype; o = (p v) / max(sum p, 1e-30), where the
-denominator sums the rounded p. It differs from K1, whose denominator sums
-the fp32 probabilities. The row max runs over the S keys; the tool's
-padded keys (zero scores) do not enter it, which changes no value in fp32.
+denominator sums the rounded p: K1's function with ``mxu_denom=True`` at
+scale 1/8 (a power of two, so the pre-scale is exact). The kernels are
+instances of K1's body (``csrc/attention_flash.cuh``), ``stagger`` the very
+instance K1 runs with ``mxu_denom=True``. The row max runs over the S
+keys; the tool's padded keys (zero scores) do not enter it, which changes
+no value in fp32.
 
 The kernel takes contiguous bf16, as the tool runs it; the plain version
 also takes fp32 (the CPU tests). A tensor on the CPU takes the plain

@@ -7,14 +7,18 @@ T1 replaces ``tools/bench_kernel_phases.py::probes`` (Pallas bodies
 ``_qk64_probe``, ``_qk128_probe``). Both are measurement kernels: each runs
 one phase of K1 (QK, softmax, PV) alone at K1's vitl tile sizes, so the
 bench tools (``tools/bench_kernel_phases.py``, ``tools/bench_kernel_ab.py``
-of this package) can time it. The CUDA source, with the note on its bound
-and design, is ``csrc/qk_probes.cu``.
+of this package) can time it. The CUDA sources, with the notes on their
+bounds and designs, are ``csrc/phase_probes.cu`` (T1, on the attention
+body's wgmma + TMA machinery) and ``csrc/qk_probes.cu`` (T3, mma.sync).
 
 Every probe works per step on ``[steps, rows, 128]`` operands; "x2" probes
 split the 128 columns into two heads of 64:
 
 - T1 ``qk64x2`` / ``qk128``: the first 128 score columns, summed over the
-  heads, ``[steps, M, 128]`` in the input dtype.
+  heads, ``[steps, M, 128]`` in the input dtype. The kernel keeps
+  accumulating every later key tile's products; with ``sink=True`` it
+  also stores their sums into a scratch buffer (the run that shows no
+  product was dropped: its time must match the run without).
 - T1 ``qk+sm x2``: per head ``bf16(exp(s - rowmax s))``, its first 128
   columns summed over the heads; with ``side=True`` also the per-row fp32
   sum of every exponential, ``[steps, M]``, which keeps the kernel's
@@ -37,8 +41,7 @@ from . import build
 
 WIDTH = 128                # q / k / v row width (two heads of 64 or one of 128)
 PHASE_PROBES = ("qk64x2", "qk128", "qk+sm x2", "pv128x2")
-_QK_CODES = {"qk64x2": 0, "qk128": 1, "qk+sm x2": 2}
-_T3_CODES = {2: 3, 1: 4}   # heads -> probe code of vda_qk_probe
+_QK_CODES = {"qk64x2": 0, "qk128": 1, "qk+sm x2": 2}   # probe codes of vda_phase_probe
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, heads: int) -> list[torch.Tensor]:
@@ -98,18 +101,34 @@ def _qk_shapes(q: torch.Tensor, k: torch.Tensor) -> tuple[int, int, int]:
     return steps, m, n
 
 
-def _launch_qk(code: int, q, k, out, side) -> None:
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch_t1(code: int, q, k, out, side, sink) -> None:
+    steps, m, n = _qk_shapes(q, k)
+    _check(q, k, shapes=[(steps, m, WIDTH), (steps, n, WIDTH)])
+    fn = build.library("phase_probes").vda_phase_probe
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    with torch.cuda.device(q.device):
+        err = fn(code, q.data_ptr(), k.data_ptr(), out.data_ptr(),
+                 side.data_ptr() if side is not None else None,
+                 sink.data_ptr() if sink is not None else None, steps, m, n, _stream(q))
+    if err != 0:
+        raise RuntimeError(f"phase probe {code} launch failed: cudaError {err}")
+
+
+def _launch_qk(heads: int, q, k, out) -> None:
     steps, m, n = _qk_shapes(q, k)
     _check(q, k, shapes=[(steps, m, WIDTH), (steps, n, WIDTH)])
     fn = build.library("qk_probes").vda_qk_probe
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(code, q.data_ptr(), k.data_ptr(), out.data_ptr(),
-                 side.data_ptr() if side is not None else None, None, steps, m, n, stream)
+        err = fn(heads, q.data_ptr(), k.data_ptr(), out.data_ptr(), steps, m, n, _stream(q))
     if err != 0:
-        raise RuntimeError(f"qk probe {code} launch failed: cudaError {err}")
+        raise RuntimeError(f"qk probe (heads {heads}) launch failed: cudaError {err}")
 
 
 def _launch_pv(p, p2, v, out) -> None:
@@ -120,12 +139,12 @@ def _launch_pv(p, p2, v, out) -> None:
     if m % 64 or n % 64 or not m or not n:
         raise ValueError(f"the kernel takes M % 64 == 0 and N % 64 == 0: M={m}, N={n}")
     _check(p, p2, v, shapes=[(steps, m, n), (steps, m, n), (steps, n, WIDTH)])
-    fn = build.library("qk_probes").vda_pv_probe
+    fn = build.library("phase_probes").vda_phase_pv
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = fn(p.data_ptr(), p2.data_ptr(), v.data_ptr(), out.data_ptr(), steps, m, n, stream)
+        err = fn(p.data_ptr(), p2.data_ptr(), v.data_ptr(), out.data_ptr(), steps, m, n,
+                 _stream(p))
     if err != 0:
         raise RuntimeError(f"pv probe launch failed: cudaError {err}")
 
@@ -139,14 +158,19 @@ def _device(t: torch.Tensor, name: str) -> bool:
     return True
 
 
-def phase_probe(name: str, *args: torch.Tensor, side: bool = False):
+def phase_probe(name: str, *args: torch.Tensor, side: bool = False, sink: bool = False):
     """T1: one of ``PHASE_PROBES``. ``qk*`` probes take (q, k), ``pv128x2``
     takes (p, p2, v). Returns the probe's output, and for ``qk+sm x2`` with
-    ``side=True`` the pair (output, per-row sum of the exponentials)."""
+    ``side=True`` the pair (output, per-row sum of the exponentials).
+    ``sink=True`` (``qk64x2``, ``qk128``) has the kernel store the sums of
+    every key tile's scores into a scratch buffer too; the output is the
+    same."""
     if name not in PHASE_PROBES:
         raise ValueError(f"unknown phase probe {name!r}; one of {PHASE_PROBES}")
     if side and name != "qk+sm x2":
         raise ValueError("only the qk+sm x2 probe has a side sum")
+    if sink and name not in ("qk64x2", "qk128"):
+        raise ValueError("only the qk64x2 and qk128 probes have a sink")
     if not _device(args[0], "phase_probe"):
         if name == "pv128x2":
             return pv_plain(*args)
@@ -164,7 +188,10 @@ def phase_probe(name: str, *args: torch.Tensor, side: bool = False):
     out = torch.empty(q.shape[0], q.shape[1], WIDTH, dtype=q.dtype, device=q.device)
     rows = (torch.empty(q.shape[0], q.shape[1], dtype=torch.float32, device=q.device)
             if name == "qk+sm x2" else None)
-    _launch_qk(_QK_CODES[name], q, k, out, rows)
+    # One float per consumer thread (256) of each 128-row block of each step.
+    scratch = (torch.empty(q.shape[0] * -(-q.shape[1] // 128) * 256, dtype=torch.float32,
+                           device=q.device) if sink else None)
+    _launch_t1(_QK_CODES[name], q, k, out, rows, scratch)
     phase_probe.launches += 1
     return (out, rows) if side else out
 
@@ -172,12 +199,12 @@ def phase_probe(name: str, *args: torch.Tensor, side: bool = False):
 def qk_probe(q: torch.Tensor, k: torch.Tensor, *, heads: int) -> torch.Tensor:
     """T3: the column-group sum of every score, over ``heads`` (2: qk64, two
     64-deep heads; 1: qk128, one 128-deep product), fp32 [steps, M, 128]."""
-    if heads not in _T3_CODES:
+    if heads not in (1, 2):
         raise ValueError(f"heads must be 1 or 2, got {heads}")
     if not _device(q, "qk_probe"):
         return qk_colsum_plain(q, k, heads=heads)
     out = torch.empty(q.shape[0], q.shape[1], WIDTH, dtype=torch.float32, device=q.device)
-    _launch_qk(_T3_CODES[heads], q, k, out, None)
+    _launch_qk(heads, q, k, out)
     qk_probe.launches += 1
     return out
 

@@ -10,7 +10,9 @@ falls back. Not routed in the model, as in the JAX package.
 
 qkv is ``[B, S, 3C]``, laid out ``[q | k | v]`` with q already scaled; the
 output is a contiguous ``[B, S, C]``. A tensor on the CPU takes the plain
-version; a CUDA tensor launches the kernel or raises.
+version; a CUDA tensor launches the kernel or raises. ``mxu_denom`` is
+K1's switch (the JAX wrapper's option of that name; JAX has no ``exp2``
+here).
 """
 from __future__ import annotations
 
@@ -26,22 +28,25 @@ def _split(qkv: torch.Tensor):
     return qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
 
 
-def spatial_attention_qkv_fused_plain(qkv: torch.Tensor, *, num_heads: int) -> torch.Tensor:
+def spatial_attention_qkv_fused_plain(qkv: torch.Tensor, *, num_heads: int,
+                                      mxu_denom: bool = False) -> torch.Tensor:
     """The kernel's function in plain PyTorch: K1's plain version at scale 1."""
     q, k, v = _split(qkv)
-    return k1.spatial_attention_plain(q, k, v, num_heads=num_heads, scale=1.0)
+    return k1.spatial_attention_plain(q, k, v, num_heads=num_heads, scale=1.0,
+                                      mxu_denom=mxu_denom)
 
 
-def spatial_attention_qkv_fused(qkv: torch.Tensor, *, num_heads: int) -> torch.Tensor:
+def spatial_attention_qkv_fused(qkv: torch.Tensor, *, num_heads: int,
+                                mxu_denom: bool = False) -> torch.Tensor:
     """Multi-head attention on a fused [B, S, 3C] (q pre-scaled) -> [B, S, C]."""
     q, k, v = _split(qkv)
-    if q.shape[2] != num_heads * k1.HEAD_DIM:
-        return k1.spatial_attention(q, k, v, num_heads=num_heads, scale=1.0)   # K4
+    if q.shape[2] != num_heads * k1.HEAD_DIM:   # K4
+        return k1.spatial_attention(q, k, v, num_heads=num_heads, scale=1.0, mxu_denom=mxu_denom)
     if qkv.device.type == "cpu":
-        return spatial_attention_qkv_fused_plain(qkv, num_heads=num_heads)
+        return spatial_attention_qkv_fused_plain(qkv, num_heads=num_heads, mxu_denom=mxu_denom)
     if qkv.device.type != "cuda":
         raise RuntimeError(f"spatial_attention_qkv_fused runs on cuda or cpu, not {qkv.device}")
-    out = k1.launch(q, k, v, num_heads=num_heads, scale=1.0)
+    out = k1.launch(q, k, v, num_heads=num_heads, scale=1.0, mxu_denom=mxu_denom)
     spatial_attention_qkv_fused.launches += 1
     return out
 

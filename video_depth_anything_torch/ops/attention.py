@@ -4,7 +4,9 @@
 (ops/attention.py) in the epilogue-denominator form its kernels use:
 fp32 scores, fp32 row max and sum, unnormalised probabilities rounded to
 the value dtype for the PV product with fp32 accumulation, and the
-1/denominator applied to the [*, D] output. The kernels' plain versions
+1/denominator applied to the [*, D] output; with the kernels' switches for
+the denominator (``mxu_denom``) and the base of the exponential
+(``exp2``). The kernels' plain versions
 (``kernels/spatial_attention.py``, ``kernels/temporal_attention.py``,
 ``kernels/attention_head_major.py``) are layout wrappers around it.
 """
@@ -13,14 +15,24 @@ from __future__ import annotations
 import torch
 
 
-def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-        scale: float) -> torch.Tensor:
-    """q, k, v: [..., S, D] head-major -> [..., S, D] in q's dtype."""
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, *,
+        mxu_denom: bool = False, exp2: bool = False) -> torch.Tensor:
+    """q, k, v: [..., S, D] head-major -> [..., S, D] in q's dtype.
+
+    ``mxu_denom``: the denominator sums the probabilities after their
+    rounding to v's dtype (what the JAX kernels compute with either
+    ``mxu_denom`` setting); without it, the fp32 probabilities (the port's
+    own choice). ``exp2``: the scores are in the log2 domain (the caller
+    folded log2(e) into q) and are exponentiated in base 2."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    e = torch.exp(s - s.amax(-1, keepdim=True))
-    denom = e.sum(-1, keepdim=True).clamp_min(1e-30)
-    o = torch.matmul(e.to(v.dtype).float(), v.float())
+    e = (torch.exp2 if exp2 else torch.exp)(s - s.amax(-1, keepdim=True))
+    p = e.to(v.dtype).float()
+    denom = (p if mxu_denom else e).sum(-1, keepdim=True).clamp_min(1e-30)
+    o = torch.matmul(p, v.float())
     return (o / denom).to(q.dtype)
+
+
+LOG2E = 1.4426950408889634   # exp(x) == exp2(x * log2(e))
 
 
 def scale_in(dtype: torch.dtype, scale: float) -> float:

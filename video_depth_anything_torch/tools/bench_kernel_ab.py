@@ -16,12 +16,12 @@ t(qk64 2-tile) / t(qk128 1-tile) is not a tensor-core rate: it weighs the
 second score tile's epilogue (the column-group adds) against the longer
 accumulator chain of qk128 (8 dependent products per key block, qk64 4).
 
-``variants`` times K1 as shipped ("prod") with PyTorch's
-scaled_dot_product_attention beside it. The JAX tool's other rows have no
-counterpart: "no-cost" stripped ``cost_estimate``, an XLA scheduling hint
-that a CUDA launch does not have, and "exp2" set K1's ``exp2`` option,
-which the port's K1 does not have: it always takes exp2 of log2(e)-scaled
-fp32 scores. K1's ``exp2`` and ``mxu_denom`` options are still to port.
+``variants`` times K1 as shipped ("prod"), K1 with ``mxu_denom=True``
+and K1 with ``exp2=True`` (the JAX tool's "exp2" row: q pre-scaled in
+bf16 by scale * log2(e), base-2 exponentials), with PyTorch's
+scaled_dot_product_attention beside them. The JAX tool's "no-cost" rows
+have no counterpart: they stripped ``cost_estimate``, an XLA scheduling
+hint that a CUDA launch does not have.
 
 ``others`` times K5 (fused qkv), K3 (int8 QK) and K4 (head-major) at the
 tool's shapes, as shipped, each with SDPA beside it.
@@ -69,10 +69,21 @@ def probes(margin_s: float = TARGET_MARGIN_S, inputs: dict | None = None) -> dic
 
 
 def variants(margin_s: float = TARGET_MARGIN_S, inputs=None) -> dict:
-    """K1 as shipped and SDPA on the same inputs."""
-    rows = k1_and_sdpa(*(inputs or variant_inputs()), margin_s, width=14)
-    print("no-cost, exp2: no counterpart on the card (cost_estimate is an XLA scheduling hint; "
-          "the port's K1 always exponentiates in base 2)", flush=True)
+    """K1 as shipped, with mxu_denom, with exp2, and SDPA on the same
+    inputs."""
+    from ..kernels.spatial_attention import spatial_attention
+
+    q, k, v = inputs or variant_inputs()
+    rows = k1_and_sdpa(q, k, v, margin_s, width=14)
+    ms = marginal_ms(lambda q, k, v: spatial_attention(q, k, v, num_heads=H, scale=DH ** -0.5,
+                                                       exp2=True),
+                     q, k, v, est_call_ms=2.0, margin_s=margin_s)
+    rows["exp2"] = dict(ms=ms, tflops=attention_cost()["flops"] / ms / 1e9,
+                        over_prod=ms / rows["prod"]["ms"])
+    print(f"{'exp2':14s} {ms:8.3f} ms/call  {rows['exp2']['tflops']:7.1f} TF/s  "
+          f"({rows['exp2']['over_prod']:.3f}x prod)", flush=True)
+    print("no-cost: no counterpart on the card (cost_estimate is an XLA scheduling hint)",
+          flush=True)
     return rows
 
 

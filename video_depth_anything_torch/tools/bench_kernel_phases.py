@@ -7,25 +7,31 @@ The port of the JAX package's ``tools/bench_kernel_phases.py``, at its
 shape: B = 32, S = 1370 (keys padded to 1408 in the probes), H = 16,
 dh = 64, bf16.
 
-``probes`` times the four T1 kernels (``kernels/qk_probes.py``), each one
-phase of K1 per step of 1408 query rows: two 64-deep score tiles (qk64x2),
-one 128-deep (qk128), two score tiles with their softmax sweeps (qk+sm x2)
-and two 1408-key PV products (pv128x2). It prints µs per step, TF/s, each
+``probes`` times the four T1 kernels (``kernels/qk_probes.py``, on the
+attention body's wgmma + TMA machinery), each one phase of K1 per step of
+1408 query rows: two 64-deep score tiles (qk64x2), one 128-deep (qk128),
+two score tiles with their softmax sweeps (qk+sm x2) and two 1408-key PV
+products (pv128x2); and qk64x2 once more with its sink, which stores the
+sums of every key tile's scores: its time against the plain qk64x2 run
+shows that no product was dropped. It prints µs per step, TF/s, each
 probe's bound (the larger of its operations at the bf16 tensor-core peak
 and its bytes at the HBM rate) and the exponentials' own time at the
 special-function rate; then the derived softmax-only time, the phase sum
 and the qk64 / qk128 ratio. Unlike the TPU's, these QK probes run every
-product: the card's compiler cannot narrow them (``csrc/qk_probes.cu``).
+product: the card's compiler cannot narrow them (``csrc/phase_probes.cu``).
 The pv probe reads p and p2 from device memory, 190 MB over its 24 steps:
 it is bytes-bound, where K1's PV keeps P in registers.
 
-``variants`` times T2 (``kernels/attention_variants.py``) under base,
-stagger and kchunk, with its max abs error against K1 on the same inputs,
-ms per call, TF/s and µs per (batch, head pair); then K1 ("prod") and
-PyTorch's scaled_dot_product_attention beside it.
+``variants`` times T2 (``kernels/attention_variants.py``, instances of
+K1's body with the rounded-p denominator) under base, stagger and kchunk,
+with its max abs error against K1 with either denominator on the same
+inputs (stagger is K1's ``mxu_denom=True`` instance: 0 there), ms per
+call, TF/s and µs per (batch, head pair); then K1 ("prod"), K1 with
+``mxu_denom=True`` and PyTorch's scaled_dot_product_attention beside it.
 
 Times are marginal ms per call from chains of launches
-(``tools/timing.py``), warm in the 50 MB L2: a QK probe's q and k are
+(``tools/timing.py``; the T1 chains replayed from CUDA graphs, as a probe
+takes about as long as the host needs to launch it), warm in the 50 MB L2: a QK probe's q and k are
 46 MB, T2's q, k, v 270 MB. Needs a CUDA card and exits 2 without one.
 """
 from __future__ import annotations
@@ -80,39 +86,43 @@ def probes(margin_s: float = TARGET_MARGIN_S, inputs: dict | None = None) -> dic
 
     inputs = inputs or probe_inputs()
     rows = {}
-    for name in ("qk64x2", "qk128", "qk+sm x2", "pv128x2"):
+    for row, name, sink in (("qk64x2", "qk64x2", False), ("qk128", "qk128", False),
+                            ("qk+sm x2", "qk+sm x2", False), ("pv128x2", "pv128x2", False),
+                            ("qk64x2 sink", "qk64x2", True)):
         args = inputs["pv" if name == "pv128x2" else "qk"]
         cost = probe_cost(name)
-        ms = marginal_ms(lambda *a, n=name: phase_probe(n, *a), *args,
-                         est_call_ms=cost["steps"] * 3e-3, margin_s=margin_s)
+        ms = marginal_ms(lambda *a, n=name, k=sink: phase_probe(n, *a, sink=k), *args,
+                         est_call_ms=cost["steps"] * 1e-3, margin_s=margin_s, graph=True)
         bms, by = bound_ms(cost["flops"], cost["bytes"])
         exps = exp_ms(cost["exps"])
-        rows[name] = dict(ms=ms, us_per_step=ms / cost["steps"] * 1e3,
-                          tflops=cost["flops"] / ms / 1e9, bound_ms=bms, bound_by=by,
-                          exp_ms=exps, bytes_ms=cost["bytes"] / HBM_BYTES_PER_S * 1e3,
-                          ops_ms=cost["flops"] / PEAK_OPS["bfloat16"] * 1e3)
-        r = rows[name]
-        print(f"{name:9s} {r['us_per_step']:7.2f} us/step  {r['tflops']:7.1f} TF/s  "
+        rows[row] = dict(ms=ms, us_per_step=ms / cost["steps"] * 1e3,
+                         tflops=cost["flops"] / ms / 1e9, bound_ms=bms, bound_by=by,
+                         exp_ms=exps, bytes_ms=cost["bytes"] / HBM_BYTES_PER_S * 1e3,
+                         ops_ms=cost["flops"] / PEAK_OPS["bfloat16"] * 1e3)
+        r = rows[row]
+        print(f"{row:11s} {r['us_per_step']:7.2f} us/step  {r['tflops']:7.1f} TF/s  "
               f"{ms:.4f} ms/call, bound {bms:.4f} ms ({by}; operations {r['ops_ms']:.4f}, "
               f"bytes {r['bytes_ms']:.4f}" + (f"; exponentials alone {exps:.4f}" if exps else "")
               + ")", flush=True)
     t64, t128 = rows["qk64x2"]["us_per_step"], rows["qk128"]["us_per_step"]
     tsm, tpv = rows["qk+sm x2"]["us_per_step"], rows["pv128x2"]["us_per_step"]
-    # qk+sm recomputes the scores of key tiles 0 and 1 after its pass (2 of
-    # the 22 tiles of QK work) to take their exponentials against the final
-    # row max.
-    extra = 2 / (S_PAD // 64) * t64
+    # qk+sm recomputes the scores of key tile 0 after its pass (1 of the 11
+    # tiles of QK work) to take their exponentials against the final row max.
+    extra = 1 / (S_PAD // 128) * t64
     exp_us = exp_ms(2 * S_PAD * S_PAD) * 1e3
     rows["derived"] = dict(softmax_us_per_step=tsm - t64,
                            softmax_less_recompute_us_per_step=tsm - t64 - extra,
                            phase_sum_us_per_step=tsm + tpv,
-                           qk64_over_qk128=t64 / t128)
+                           qk64_over_qk128=t64 / t128,
+                           sink_over_plain=rows["qk64x2 sink"]["ms"] / rows["qk64x2"]["ms"])
     print(f"derived softmax-only: {tsm - t64:.2f} us/step (2 heads); {tsm - t64 - extra:.2f} "
-          f"less the recomputed QK of 2 of 22 key tiles; the exponentials alone at "
+          f"less the recomputed QK of 1 of 11 key tiles; the exponentials alone at "
           f"{EXP_PER_S / 1e12:.2f}e12/s: {exp_us:.2f} us/step")
     print(f"phase sum qk+sm+pv: {tsm + tpv:.2f} us/step vs kernel step from variants below")
-    print(f"qk64 vs qk128 per useful flop: {t64 / t128:.2f}x (both issue the same mma.sync "
-          f"products: 1.0 means depth 64 costs the card no tensor-core rate)", flush=True)
+    print(f"qk64 vs qk128 per useful flop: {t64 / t128:.2f}x (the same wgmma m64n128k16 "
+          f"products, two chains of 4 against one of 8: 1.0 means depth 64 costs the card no "
+          f"tensor-core rate); qk64x2 with its sink / without: "
+          f"{rows['derived']['sink_over_plain']:.3f}", flush=True)
     return rows
 
 
@@ -130,8 +140,9 @@ def attention_cost() -> dict:
 
 
 def k1_and_sdpa(q, k, v, margin_s: float, width: int = 8) -> dict:
-    """K1 as shipped ("prod") and PyTorch's scaled_dot_product_attention on
-    the same [B, S, H*64] inputs; one dict per row, also printed."""
+    """K1 as shipped ("prod"), K1 with ``mxu_denom=True`` ("prod mxu_denom")
+    and PyTorch's scaled_dot_product_attention on the same [B, S, H*64]
+    inputs; one dict per row, also printed."""
     import torch.nn.functional as F
 
     from ..kernels.spatial_attention import spatial_attention
@@ -141,6 +152,9 @@ def k1_and_sdpa(q, k, v, margin_s: float, width: int = 8) -> dict:
     rows = {}
     for name, fn, args in (
             ("prod", lambda q, k, v: spatial_attention(q, k, v, num_heads=H, scale=DH ** -0.5),
+             (q, k, v)),
+            ("prod mxu_denom", lambda q, k, v: spatial_attention(q, k, v, num_heads=H,
+                                                                 scale=DH ** -0.5, mxu_denom=True),
              (q, k, v)),
             ("sdpa", lambda q, k, v: F.scaled_dot_product_attention(q, k, v, scale=DH ** -0.5),
              heads)):
@@ -163,20 +177,24 @@ def variants(margin_s: float = TARGET_MARGIN_S, inputs=None) -> dict:
     exps = exp_ms(cost["exps"])
     print(f"bound {bms:.4f} ms ({by}); the exponentials alone {exps:.4f} ms", flush=True)
     ref = spatial_attention(q, k, v, num_heads=H, scale=DH ** -0.5).float()
+    ref_mxu = spatial_attention(q, k, v, num_heads=H, scale=DH ** -0.5, mxu_denom=True).float()
     rows = {}
     for sched in SCHEDULES:
-        got = attention_variant(q, k, v, num_heads=H, schedule=sched)
-        err = (got.float() - ref).abs().max().item()
+        got = attention_variant(q, k, v, num_heads=H, schedule=sched).float()
+        err = (got - ref).abs().max().item()
+        err_mxu = (got - ref_mxu).abs().max().item()
         ms = marginal_ms(lambda q, k, v, s=sched: attention_variant(q, k, v, num_heads=H,
                                                                     schedule=s),
                          q, k, v, est_call_ms=2.0, margin_s=margin_s)
         rows[sched] = dict(ms=ms, tflops=cost["flops"] / ms / 1e9, err_vs_k1=err,
+                           err_vs_k1_mxu_denom=err_mxu,
                            us_per_head_pair=ms / (B * H // 2) * 1e3, bound_ms=bms, bound_by=by,
                            exp_ms=exps)
         print(f"{sched:8s} {ms:8.3f} ms/call  {rows[sched]['tflops']:7.1f} TF/s  "
-              f"({rows[sched]['us_per_head_pair']:5.2f} us/step)  max|err| {err:.2e}",
+              f"({rows[sched]['us_per_head_pair']:5.2f} us/step)  max|err| vs K1 {err:.2e}, "
+              f"vs K1 mxu_denom {err_mxu:.2e}",
               flush=True)
-    rows.update(k1_and_sdpa(q, k, v, margin_s))
+    rows.update(k1_and_sdpa(q, k, v, margin_s, width=14))
     return rows
 
 

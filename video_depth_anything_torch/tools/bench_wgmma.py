@@ -1,8 +1,11 @@
 """Card microbench of the redesigned kernels: K1, K3 (bf16 v), K4 and K5
 (the attention body ``csrc/attention_flash.cuh``), K6
-(``csrc/fused_rcu.cu``) and K2 (``csrc/temporal_attention.cu``) at the
-shapes of PERF.md's kernel table, each beside one PyTorch call of the
-same function and its bound.
+(``csrc/fused_rcu.cu``), K2 (``csrc/temporal_attention.cu``) and the
+measurement kernels T1 (``csrc/phase_probes.cu``) and T2
+(``csrc/attention_variants.cu``) at the shapes of PERF.md's kernel table,
+each beside one PyTorch call of the same function (where there is one)
+and its bound. K1 is also timed with ``mxu_denom=True`` at the main-path
+and vitl shapes, where the tree's wrapper has the switch.
 
     python -m video_depth_anything_torch.tools.bench_wgmma [--label L] [--json PATH]
 
@@ -25,6 +28,7 @@ Needs a CUDA card and exits 2 without one.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import sys
@@ -166,6 +170,10 @@ def bench(gen: torch.Generator) -> list[dict]:
                          b * s * c * (2 + 2 * v.element_size()), err))
         del q8, k8, v, heads
     torch.cuda.empty_cache()
+    rows += bench_k1_denominators(gen)
+    torch.cuda.empty_cache()
+    rows += bench_measurement(gen)
+    torch.cuda.empty_cache()
     for label, p, c in K2_SHAPES:
         t, h = K2_FRAMES, K2_HEADS
         dh = c // h
@@ -184,6 +192,89 @@ def bench(gen: torch.Generator) -> list[dict]:
     return rows
 
 
+# K1 with its denominator switch: the main path's cached window and vitl 518^2.
+K1_DENOM_SHAPES = [("main 518x686 cached", 22, 1814, 6), ("vitl 518^2", 32, 1370, 16)]
+# T1 at the phase bench's shapes: (probe, steps, rows, keys); T2 at its
+# [B, S, H*64] with H = 16.
+T1_SHAPES = [("qk64x2", 64, 1408, 1408), ("qk128", 64, 1408, 1408), ("qk+sm x2", 64, 1408, 1408),
+             ("pv128x2", 24, 1408, 1408)]
+T2_SHAPE = (32, 1370, 16)
+T2_SCHEDULES = ("base", "stagger", "kchunk")
+
+
+def bench_k1_denominators(gen: torch.Generator) -> list[dict]:
+    """K1 with mxu_denom=True (beside the default rows of bench) where the
+    wrapper takes it; none on a tree without the switch."""
+    from video_depth_anything_torch.kernels import spatial_attention as k1
+
+    if "mxu_denom" not in inspect.signature(k1.spatial_attention).parameters:
+        print("K1 has no mxu_denom switch in this tree: no rows", flush=True)
+        return []
+    rows = []
+    for label, b, s, h in K1_DENOM_SHAPES:
+        c = h * 64
+        qkv = torch.randn(b, s, 3 * c, device="cuda", generator=gen).to(torch.bfloat16)
+        q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+
+        def run():
+            return k1.spatial_attention(q, k, v, num_heads=h, scale=0.125, mxu_denom=True)
+
+        err = _err(run(), k1.spatial_attention_plain(q, k, v, num_heads=h, scale=0.125,
+                                                     mxu_denom=True))
+        ms = time_ms(run, ITERS)
+        heads = [x.unflatten(-1, (h, 64)).transpose(1, 2) for x in (q, k, v)]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(*heads, scale=0.125), ITERS)
+        rows.append(_row("K1 mxu_denom", label, [b, s, c], ms, lib, 4 * b * h * s * s * 64,
+                         8 * b * s * c, err))
+        del qkv, q, k, v, heads
+    return rows
+
+
+def bench_measurement(gen: torch.Generator) -> list[dict]:
+    """T1's four probes (replayed from a CUDA graph: a probe takes about as
+    long as the host needs to launch it) and T2's three schedules."""
+    from video_depth_anything_torch.kernels import attention_variants as t2
+    from video_depth_anything_torch.kernels import qk_probes as qp
+
+    dt = torch.bfloat16
+    rows = []
+    for name, steps, m, n in T1_SHAPES:
+        def uniform(*shape):
+            return (torch.rand(shape, device="cuda", generator=gen) - 0.5).to(dt)
+
+        if name == "pv128x2":
+            args = (uniform(steps, m, n), uniform(steps, m, n), uniform(steps, n, 128))
+            ref = qp.pv_plain(*args)
+            ops, nbytes = 2 * 2 * steps * m * n * 128, steps * (2 * m * n + n * 128 + m * 128) * 2
+        else:
+            args = (uniform(steps, m, 128), uniform(steps, n, 128))
+            ref = (qp.qk_softmax_plain(*args)[0] if name == "qk+sm x2"
+                   else qp.qk_first128_plain(*args, heads=2 if name == "qk64x2" else 1))
+            ops, nbytes = 2 * steps * m * n * 128, steps * (m + n + m) * 128 * 2
+            if name == "qk+sm x2":
+                nbytes += steps * m * 4   # the side sum
+        err = _err(qp.phase_probe(name, *args), ref)
+        ms = graph_ms(lambda: qp.phase_probe(name, *args), ITERS)
+        rows.append(_row("T1", name, [steps, m, n], ms, None, ops, nbytes, err))
+        del args, ref
+    b, s, h = T2_SHAPE
+    c = h * 64
+    q, k, v = ((0.3 * torch.randn(b, s, c, device="cuda", generator=gen)).to(dt)
+               for _ in range(3))
+    ref = t2.attention_variant_plain(q, k, v, num_heads=h)
+    heads = [x.unflatten(-1, (h, 64)).transpose(1, 2) for x in (q, k, v)]
+    lib = time_ms(lambda: F.scaled_dot_product_attention(*heads, scale=0.125), ITERS)
+    for sched in T2_SCHEDULES:
+        def run():
+            return t2.attention_variant(q, k, v, num_heads=h, schedule=sched)
+
+        err = _err(run(), ref)
+        rows.append(_row("T2", sched, [b, s, c], time_ms(run, ITERS), lib,
+                         4 * b * h * s * s * 64, 8 * b * s * c, err))
+    del q, k, v, ref, heads
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--label", default="", help="a name for this run in its output")
@@ -198,8 +289,9 @@ def main() -> int:
     rows = bench(torch.Generator(device="cuda").manual_seed(0))
     for r in rows:
         r.update(run=args.label, card=card)
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"[{args.label}] {r['kernel']} {r['label']:20s} {r['shape']}: kernel "
-              f"{r['ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"{r['ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), max abs err {r['max_abs_err']:.3e}", flush=True)
     if args.json:
         with open(args.json, "a") as f:

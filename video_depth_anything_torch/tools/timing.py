@@ -92,23 +92,40 @@ def chain_lengths(est_call_ms: float, margin_s: float = TARGET_MARGIN_S) -> tupl
     return c1, c1 + max(8, int(calls))
 
 
-def _chain_ms(fn, args, n: int) -> float:
+def _timed_ms(run) -> float:
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(n):
-        fn(*args)
+    run()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end)
 
 
-def marginal_ms(fn, *args, est_call_ms: float, margin_s: float = TARGET_MARGIN_S) -> float:
+def marginal_ms(fn, *args, est_call_ms: float, margin_s: float = TARGET_MARGIN_S,
+                graph: bool = False) -> float:
     """Marginal ms per call of ``fn(*args)``: the medians of ITERS timings
-    of a c1-call and a c2-call chain, (t2 - t1) / (c2 - c1)."""
+    of a c1-call and a c2-call chain, (t2 - t1) / (c2 - c1). With
+    ``graph``, each chain is captured once into a CUDA graph and the
+    timings replay it: for calls that take about as long as the host needs
+    to launch them through a wrapper, which a chain of launches would time
+    instead."""
     c1, c2 = chain_lengths(est_call_ms, margin_s)
     for _ in range(2):
         fn(*args)
-    t1 = statistics.median(_chain_ms(fn, args, c1) for _ in range(ITERS))
-    t2 = statistics.median(_chain_ms(fn, args, c2) for _ in range(ITERS))
-    return (t2 - t1) / (c2 - c1)
+    times = []
+    for n in (c1, c2):
+        if graph:
+            chain = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(chain):
+                for _ in range(n):
+                    fn(*args)
+            chain.replay()
+            run = chain.replay
+        else:
+            def run(n=n):
+                for _ in range(n):
+                    fn(*args)
+        times.append(statistics.median(_timed_ms(run) for _ in range(ITERS)))
+        del run
+    return (times[1] - times[0]) / (c2 - c1)
