@@ -14,9 +14,9 @@ printing no result, without either. Phases, each fatal on failure:
       IGMMA (int8 wgmma), HMMA (mma.sync), UTMALDG (TMA loads) and SYNCS
       (mbarrier) instructions in each library's SASS (cuobjdump -sass).
       Fails if K1's, K4's, K6's, the option instances' (K1/K4/K5's
-      mxu_denom and exp2), T1's or T2's library lacks HGMMA or UTMALDG,
-      K3's IGMMA or UTMALDG, K2's or T3's HMMA, if T2's has HMMA (it is
-      the body's instance), or if cuobjdump is missing.
+      mxu_denom and exp2), T1's, T2's or T3's library lacks HGMMA or
+      UTMALDG, K3's IGMMA or UTMALDG, K2's HMMA, if T2's or T3's has HMMA
+      (neither runs mma.sync), or if cuobjdump is missing.
   (c) K1 spatial attention against its plain version, bf16 and fp32, at
       the encoders' shapes (strided views of a fused qkv, as the model
       passes them); then the switches: K1 with mxu_denom, exp2 and both,
@@ -110,9 +110,9 @@ SASS_REQUIRED = {"fused_rcu": ("HGMMA", "UTMALDG"),
                  "temporal_attention": ("HMMA",),
                  "phase_probes": ("HGMMA", "UTMALDG"),
                  "attention_variants": ("HGMMA", "UTMALDG"),
-                 "qk_probes": ("HMMA",)}
-# T2 is the attention body's instance: no mma.sync of its own.
-SASS_ABSENT = {"attention_variants": ("HMMA",)}
+                 "qk_probes": ("HGMMA", "UTMALDG")}
+# T2 is the attention body's instance, T3 a wgmma kernel: no mma.sync.
+SASS_ABSENT = {"attention_variants": ("HMMA",), "qk_probes": ("HMMA",)}
 # Max abs error against the plain version. The spatial kernels' outputs
 # are near-uniform averages of unit-normal v over 1370-1814 keys (mean |o|
 # about 0.03, max 0.2 to 0.7), so bf16 is held to 4e-3: a few times the

@@ -36,7 +36,8 @@ def test_bench_wgmma_k2_shapes_are_the_motion_module_shapes():
 
 def test_bench_wgmma_measurement_rows_are_the_bench_tools_shapes():
     """T1 at the phase bench's 64 steps of 1408 rows x 1408 keys (PV 24
-    steps), T2 at its [32, 1370, 16 x 64] under the three schedules, and
+    steps), T3's two probes at the same, T2 at its [32, 1370, 16 x 64]
+    under the three schedules, and
     K1's denominator pair at the main path's cached window and vitl 518^2."""
     from video_depth_anything_torch.kernels.attention_variants import SCHEDULES
     from video_depth_anything_torch.kernels.qk_probes import PHASE_PROBES
@@ -46,6 +47,9 @@ def test_bench_wgmma_measurement_rows_are_the_bench_tools_shapes():
     for name, steps, m, n in bench_wgmma.T1_SHAPES:
         assert (steps, m, n) == ((phases.PV_STEPS if name == "pv128x2" else phases.QK_STEPS),
                                  phases.S_PAD, phases.S_PAD)
+    assert bench_wgmma.T3_SHAPES == [("qk64 x2heads", 2, phases.QK_STEPS, phases.S_PAD,
+                                      phases.S_PAD),
+                                     ("qk128 x1", 1, phases.QK_STEPS, phases.S_PAD, phases.S_PAD)]
     assert bench_wgmma.T2_SHAPE == (phases.B, phases.S, phases.H)
     assert bench_wgmma.T2_SCHEDULES == SCHEDULES
     assert [shape[1:] for shape in bench_wgmma.K1_DENOM_SHAPES] == [(22, 1814, 6), (32, 1370, 16)]
@@ -70,3 +74,20 @@ def test_bench_tools_report_the_new_rows_keys(monkeypatch):
     assert {"err_vs_k1", "err_vs_k1_mxu_denom"} <= set(rows["stagger"])
     rows = ab.variants(inputs=(x, x, x))
     assert rows["exp2"]["over_prod"] == 1.0 and "prod mxu_denom" in rows
+
+
+def test_bench_kernel_ab_probes_report_t3_against_its_bound(monkeypatch, capsys):
+    """bench_kernel_ab's T3 rows on the CPU with the timing replaced: each
+    probe's bound counts q and k in bf16 and the fp32 output (operations
+    0.0328 ms, bytes 0.0275 ms at the tool's shape), and the ratio line
+    names the wgmma chains it compares."""
+    from video_depth_anything_torch.tools import bench_kernel_ab as ab
+
+    monkeypatch.setattr(ab, "marginal_ms", lambda fn, *a, **kw: 0.05)
+    rows = ab.probes(inputs={"qk": (torch.zeros(1, 64, 128), torch.zeros(1, 128, 128))})
+    assert set(rows) == {"qk64 x2heads", "qk128 x1", "ratio"} and rows["ratio"] == 1.0
+    for name in ("qk64 x2heads", "qk128 x1"):
+        assert rows[name]["bound_by"] == "operations"
+        assert abs(rows[name]["bound_ms"] - 0.0328) < 1e-4
+        assert abs(rows[name]["bytes_ms"] - 0.0275) < 1e-4
+    assert "two 4-step chains" in capsys.readouterr().out

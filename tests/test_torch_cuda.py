@@ -496,3 +496,24 @@ def test_t1_sink_changes_no_output(card):
         ref = qp.qk_first128_plain(q, k, heads=heads)
         assert (plain.float() - ref.float()).abs().max() <= 2 ** -7 * ref.float().abs().max()
     assert kernels.launch_counts() == counts(phase_probes=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps,m,n", [(1, 64, 128), (1, 192, 128), (3, 192, 640),
+                                       (133, 128, 256)])
+def test_t3_persistent_walk_matches_plain_version(card, steps, m, n):
+    """T3's persistent grid at the edges of its walk: one half tile and a
+    full plus a half tile (fewer tiles than SMs; rows past M loaded as
+    zeros, not stored), 6 tiles against 5 key tiles each, and 133 tiles
+    (one block takes two on a 132-SM card). Both probes, bf16 in, fp32 out,
+    within 1e-4 of the max |o| (the fp32 sums run in another order)."""
+    q = (torch.rand(steps, m, 128, device="cuda", generator=card) - 0.5).to(torch.bfloat16)
+    k = (torch.rand(steps, n, 128, device="cuda", generator=card) - 0.5).to(torch.bfloat16)
+    kernels.reset_launch_counts()
+    for heads in (2, 1):
+        got = qp.qk_probe(q, k, heads=heads)
+        ref = qp.qk_colsum_plain(q, k, heads=heads)
+        assert got.dtype == torch.float32 and got.shape == (steps, m, 128)
+        assert torch.isfinite(got).all()
+        assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    assert kernels.launch_counts() == counts(qk_probes=2)

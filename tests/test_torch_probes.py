@@ -58,11 +58,13 @@ def _uniform(shape, seed):
 
 
 def _per_step(body, arrays, out_dtype):
-    """The JAX tools' per-step pallas_call: one grid step per leading index."""
+    """The JAX tools' per-step pallas_call: one grid step per leading index,
+    an output of the first operand's rows."""
+    rows = arrays[0].shape[1]
     specs = [pl.BlockSpec((1, *a.shape[1:]), lambda i: (i, 0, 0)) for a in arrays]
     return np.asarray(pl.pallas_call(
-        body, out_shape=jax.ShapeDtypeStruct((STEPS, ROWS, W), out_dtype), grid=(STEPS,),
-        in_specs=specs, out_specs=pl.BlockSpec((1, ROWS, W), lambda i: (i, 0, 0)),
+        body, out_shape=jax.ShapeDtypeStruct((STEPS, rows, W), out_dtype), grid=(STEPS,),
+        in_specs=specs, out_specs=pl.BlockSpec((1, rows, W), lambda i: (i, 0, 0)),
         interpret=True)(*arrays), np.float32)
 
 
@@ -103,17 +105,25 @@ def test_t1_plain_matches_jax_body(name, dtype):
     _assert_held(got.float().numpy(), want, dtype, 2 if name == "qk+sm x2" else 1)
 
 
-@pytest.mark.parametrize("heads,dtype", [(2, "bfloat16"), (2, "float32"), (1, "bfloat16"),
-                                         (1, "float32")])
-def test_t3_plain_matches_jax_body(heads, dtype):
+# (heads, dtype, M, N): the tools' square case at 256, then the edges of
+# the kernel's persistent walk: M = 192 (a full and a half 128-row tile)
+# against one key tile, and a single half tile against five key tiles.
+T3_CASES = [pytest.param(h, d, ROWS, ROWS, id=f"{h}-{d}")
+            for h, d in ((2, "bfloat16"), (2, "float32"), (1, "bfloat16"), (1, "float32"))]
+T3_CASES += [pytest.param(h, d, m, n, id=f"{h}-{d}-M{m}-N{n}")
+             for m, n in ((192, 128), (64, 640)) for h in (2, 1) for d in ("bfloat16", "float32")]
+
+
+@pytest.mark.parametrize("heads,dtype,m,n", T3_CASES)
+def test_t3_plain_matches_jax_body(heads, dtype, m, n):
     """T3's output is fp32 whatever the inputs: every score column, summed
     in groups of 128 columns (and over the heads for qk64)."""
     jdt, tdt = DTYPES[dtype]
-    x = [_uniform((STEPS, ROWS, W), 3), _uniform((STEPS, ROWS, W), 4)]
+    x = [_uniform((STEPS, m, W), 3), _uniform((STEPS, n, W), 4)]
     body = functools.partial(AB._qk64_probe if heads == 2 else AB._qk128_probe, dh=64)
     want = _per_step(body, [jnp.asarray(a, jdt) for a in x], jnp.float32)
     got = qp.qk_probe(*(torch.from_numpy(a).to(tdt) for a in x), heads=heads)
-    assert got.dtype == torch.float32
+    assert got.dtype == torch.float32 and got.shape == (STEPS, m, W)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
 

@@ -8,8 +8,10 @@ T1 replaces ``tools/bench_kernel_phases.py::probes`` (Pallas bodies
 one phase of K1 (QK, softmax, PV) alone at K1's vitl tile sizes, so the
 bench tools (``tools/bench_kernel_phases.py``, ``tools/bench_kernel_ab.py``
 of this package) can time it. The CUDA sources, with the notes on their
-bounds and designs, are ``csrc/phase_probes.cu`` (T1, on the attention
-body's wgmma + TMA machinery) and ``csrc/qk_probes.cu`` (T3, mma.sync).
+bounds and designs, are ``csrc/phase_probes.cu`` (T1) and
+``csrc/qk_probes.cu`` (T3, a persistent kernel whose wgmma accumulators
+are the column-group sums), both on the attention body's wgmma + TMA
+machinery.
 
 Every probe works per step on ``[steps, rows, 128]`` operands; "x2" probes
 split the 128 columns into two heads of 64:

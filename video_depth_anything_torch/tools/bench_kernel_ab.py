@@ -11,10 +11,12 @@ which every score column feeds the output (the output's column j sums the
 scores of columns j, j + 128, ... over the heads), two 64-deep score tiles
 per step (qk64) and one 128-deep tile (qk128). On the TPU the ratio of the
 two read as the matrix unit's rate at depth 64. On this card both probes
-issue the same mma.sync m16n8k16 products (8 per 8 keys and 16 rows), so
-t(qk64 2-tile) / t(qk128 1-tile) is not a tensor-core rate: it weighs the
-second score tile's epilogue (the column-group adds) against the longer
-accumulator chain of qk128 (8 dependent products per key block, qk64 4).
+run on wgmma m64n128k16 (``csrc/qk_probes.cu``), whose accumulators sum
+the column groups themselves: per 64 rows and 128-key tile, qk64 issues
+two chains of 4 k steps into two accumulators, qk128 one chain of 8 into
+one. The same tensor-core work in both, so t(qk64 2-tile) / t(qk128
+1-tile) is not a rate at depth 64: it weighs a second accumulator (its
+registers, its sum in the epilogue) against one chain twice as long.
 
 ``variants`` times K1 as shipped ("prod"), K1 with ``mxu_denom=True``
 and K1 with ``exp2=True`` (the JAX tool's "exp2" row: q pre-scaled in
@@ -27,8 +29,9 @@ hint that a CUDA launch does not have.
 tool's shapes, as shipped, each with SDPA beside it.
 
 Times are marginal ms per call from chains of launches
-(``tools/timing.py``), warm in the 50 MB L2. Needs a CUDA card and exits 2
-without one.
+(``tools/timing.py``; the T3 chains replayed from CUDA graphs, as a probe
+takes about as long as the host needs to launch it), warm in the 50 MB
+L2. Needs a CUDA card and exits 2 without one.
 """
 from __future__ import annotations
 
@@ -52,7 +55,7 @@ def probes(margin_s: float = TARGET_MARGIN_S, inputs: dict | None = None) -> dic
     rows = {}
     for name, heads in (("qk64 x2heads", 2), ("qk128 x1", 1)):
         ms = marginal_ms(lambda q, k, h=heads: qk_probe(q, k, heads=h), q, k,
-                         est_call_ms=QK_STEPS * 4e-3, margin_s=margin_s)
+                         est_call_ms=QK_STEPS * 1e-3, margin_s=margin_s, graph=True)
         bms, by = bound_ms(cost["flops"], nbytes)
         rows[name] = dict(ms=ms, us_per_step=ms / QK_STEPS * 1e3,
                           tflops=cost["flops"] / ms / 1e9, bound_ms=bms, bound_by=by,
@@ -62,9 +65,9 @@ def probes(margin_s: float = TARGET_MARGIN_S, inputs: dict | None = None) -> dic
               flush=True)
     ratio = rows["qk64 x2heads"]["ms"] / rows["qk128 x1"]["ms"]
     rows["ratio"] = ratio
-    print(f"t(qk64 2-tile) / t(qk128 1-tile) = {ratio:.2f} (the same mma.sync products in "
-          f"both: qk64's second column-group epilogue against qk128's accumulator chains of "
-          f"8 dependent products, not 4)", flush=True)
+    print(f"t(qk64 2-tile) / t(qk128 1-tile) = {ratio:.2f} (the same wgmma m64n128k16 work "
+          f"in both: qk64's two 4-step chains into two accumulators against qk128's one "
+          f"8-step chain)", flush=True)
     return rows
 
 

@@ -1,7 +1,7 @@
 """Card diagnosis of the wgmma kernels: build edited copies of their
 sources and time each beside the shipped one.
 
-    python -m video_depth_anything_torch.tools.bench_variants [rcu|attention|qk8|temporal|all]
+    python -m video_depth_anything_torch.tools.bench_variants [rcu|attention|qk8|temporal|qk|all]
 
 Each variant is a list of text substitutions into a copy of ``csrc/``
 (under ``_build/variants/``, gitignored), compiled with the build's own
@@ -14,7 +14,9 @@ CUDA events (``tools/timing.py``; K2's replayed from a CUDA graph), bf16, at K6'
 (32, 148, 148, 256), at K4's [32, 16, 1370, 64] and K1's main-path
 [22, 1814, 384], at K3's main-path [22, 1814, 384] and at K2's four
 shapes of the main path, [7252, 32, 64], [1813, 32, 192], [475, 32, 384]
-and [1813, 32, 64]. Needs a CUDA card and exits 2 without one.
+and [1813, 32, 64], and at T3's 64 steps of 1408 rows x 1408 keys (both
+probes, replayed from a CUDA graph). Needs a CUDA card and exits 2
+without one.
 """
 from __future__ import annotations
 
@@ -31,6 +33,11 @@ from .bench_wgmma import graph_ms
 from .timing import card_line, time_ms
 
 _WGMMA = ("wgmma_rs<NP, 0>(acc_a", "wgmma_rs<NP / 2, 0>(acc_b", "wgmma_rs<NP, 0>(acc, fa")
+
+_QK_NO_STORES = ("qk_probes.cu", "*reinterpret_cast<float2*>(orow + nb * 8) = v;",
+                 "if (v.x == 0x1p40f) *reinterpret_cast<float2*>(orow + nb * 8) = v;")
+_QK_NO_PRODUCTS = ("qk_probes.cu", "          wgmma_ss_n128<0, 0>(acc[h]",
+                   "          if (a.M < 0) wgmma_ss_n128<0, 0>(acc[h]")
 
 # name -> (library, [(file, old, new), ...])
 VARIANTS = {
@@ -93,10 +100,22 @@ VARIANTS = {
             ("temporal_attention.cu", "STAGE_MAX = 14000;", "STAGE_MAX = 20000;"),
             ("temporal_attention.cu", "BLOCKS = 6;", "BLOCKS = 5;")]),
     },
+    "qk": {
+        "shipped": ("qk_probes", []),
+        # The same kernel with a block per tile: each block walks one tile.
+        "one block per tile": ("qk_probes", [
+            ("qk_probes.cu", "a.tiles < sms ? a.tiles : sms", "a.tiles")]),
+        "5 K stages": ("qk_probes", [("qk_probes.cu", "K_ST = 4;", "K_ST = 5;")]),
+        # The sums are computed but stored only if one is exactly 2^40 (none is).
+        "no stores": ("qk_probes", [_QK_NO_STORES]),
+        # Every wait and release as shipped, no product issued: loads and stores.
+        "no products": ("qk_probes", [_QK_NO_PRODUCTS]),
+        "loads only": ("qk_probes", [_QK_NO_PRODUCTS, _QK_NO_STORES]),
+    },
 }
 _LIBS = {"fused_rcu": ("fused_rcu",), "both": ("attention_head_major", "spatial_attention"),
          "spatial_attention_qk8": ("spatial_attention_qk8",),
-         "temporal_attention": ("temporal_attention",)}
+         "temporal_attention": ("temporal_attention",), "qk_probes": ("qk_probes",)}
 
 
 def _build_variants(group: str) -> dict[str, dict[str, str]]:
@@ -208,9 +227,28 @@ def _time_temporal(built, gen):
             print(f"K2 {name:16s} (round {rep + 1}): " + ", ".join(line), flush=True)
 
 
+@torch.no_grad()
+def _time_qk(built, gen):
+    from ..kernels import qk_probes as qp
+
+    q, k = ((torch.rand(64, 1408, 128, device="cuda", generator=gen) - 0.5).to(torch.bfloat16)
+            for _ in range(2))
+    refs = {h: qp.qk_colsum_plain(q, k, heads=h) for h in (2, 1)}
+    for rep in range(2):
+        for name, libs in built.items():
+            build._LIBS["qk_probes"] = ctypes.CDLL(libs["qk_probes"])
+            line = []
+            for heads, ref in refs.items():
+                err = (qp.qk_probe(q, k, heads=heads) - ref).abs().max().item()
+                ms = graph_ms(lambda: qp.qk_probe(q, k, heads=heads), 30)
+                line.append(f"heads {heads} {ms:.4f} ms (err {err:.1e})")
+            print(f"T3 [64, 1408, 1408] {name:18s} (round {rep + 1}): " + ", ".join(line),
+                  flush=True)
+
+
 def main() -> int:
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if which not in ("rcu", "attention", "qk8", "temporal", "all"):
+    if which not in ("rcu", "attention", "qk8", "temporal", "qk", "all"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -221,7 +259,7 @@ def main() -> int:
     shipped = dict(build._LIBS)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for group, timer in (("rcu", _time_rcu), ("attention", _time_attention), ("qk8", _time_qk8),
-                         ("temporal", _time_temporal)):
+                         ("temporal", _time_temporal), ("qk", _time_qk)):
         if which in (group, "all"):
             timer(_build_variants(group), gen)
             build._LIBS.update(shipped)

@@ -1,8 +1,9 @@
 """Card microbench of the redesigned kernels: K1, K3 (bf16 v), K4 and K5
 (the attention body ``csrc/attention_flash.cuh``), K6
 (``csrc/fused_rcu.cu``), K2 (``csrc/temporal_attention.cu``) and the
-measurement kernels T1 (``csrc/phase_probes.cu``) and T2
-(``csrc/attention_variants.cu``) at the shapes of PERF.md's kernel table,
+measurement kernels T1 (``csrc/phase_probes.cu``), T2
+(``csrc/attention_variants.cu``) and T3 (``csrc/qk_probes.cu``) at the
+shapes of PERF.md's kernel table,
 each beside one PyTorch call of the same function (where there is one)
 and its bound. K1 is also timed with ``mxu_denom=True`` at the main-path
 and vitl shapes, where the tree's wrapper has the switch.
@@ -200,6 +201,8 @@ T1_SHAPES = [("qk64x2", 64, 1408, 1408), ("qk128", 64, 1408, 1408), ("qk+sm x2",
              ("pv128x2", 24, 1408, 1408)]
 T2_SHAPE = (32, 1370, 16)
 T2_SCHEDULES = ("base", "stagger", "kchunk")
+# T3 at bench_kernel_ab's shape: (probe, heads, steps, rows, keys).
+T3_SHAPES = [("qk64 x2heads", 2, 64, 1408, 1408), ("qk128 x1", 1, 64, 1408, 1408)]
 
 
 def bench_k1_denominators(gen: torch.Generator) -> list[dict]:
@@ -231,8 +234,9 @@ def bench_k1_denominators(gen: torch.Generator) -> list[dict]:
 
 
 def bench_measurement(gen: torch.Generator) -> list[dict]:
-    """T1's four probes (replayed from a CUDA graph: a probe takes about as
-    long as the host needs to launch it) and T2's three schedules."""
+    """T1's four probes and T3's two (replayed from a CUDA graph: a probe
+    takes about as long as the host needs to launch it) and T2's three
+    schedules."""
     from video_depth_anything_torch.kernels import attention_variants as t2
     from video_depth_anything_torch.kernels import qk_probes as qp
 
@@ -257,6 +261,15 @@ def bench_measurement(gen: torch.Generator) -> list[dict]:
         ms = graph_ms(lambda: qp.phase_probe(name, *args), ITERS)
         rows.append(_row("T1", name, [steps, m, n], ms, None, ops, nbytes, err))
         del args, ref
+    for name, heads, steps, m, n in T3_SHAPES:
+        q, k = ((torch.rand(steps, r, 128, device="cuda", generator=gen) - 0.5).to(dt)
+                for r in (m, n))
+        err = _err(qp.qk_probe(q, k, heads=heads), qp.qk_colsum_plain(q, k, heads=heads))
+        ms = graph_ms(lambda: qp.qk_probe(q, k, heads=heads), ITERS)
+        # q and k in bf16 read once, the fp32 output written once.
+        rows.append(_row("T3", name, [steps, m, n], ms, None, 2 * steps * m * n * 128,
+                         steps * ((m + n) * 128 * 2 + m * 128 * 4), err))
+        del q, k
     b, s, h = T2_SHAPE
     c = h * 64
     q, k, v = ((0.3 * torch.randn(b, s, c, device="cuda", generator=gen)).to(dt)
