@@ -21,8 +21,8 @@ printing no result, without either. Phases, each fatal on failure:
       the encoders' shapes (strided views of a fused qkv, as the model
       passes them); then the switches: K1 with mxu_denom, exp2 and both,
       K4 and K5 with mxu_denom, each against its plain version with the
-      same switches, K1's times at the main path's shape beside the
-      default's.
+      same switches, K1's times (and its plain version's, per switch) at
+      the main path's shape beside the default's.
   (c') K3 int8-QK spatial attention against its plain version, bf16 and
       fp32 v, at the same shapes (random int8 q and k, v a column view of
       a fused qkv), and its odd-head fallback (K1 on dequantized q, k).
@@ -54,6 +54,20 @@ printing no result, without either. Phases, each fatal on failure:
       taps 0..3, vits's head widths) through VideoDepthPipeline in fp32,
       every spatial attention on K4: launch counts read around the run,
       the output held against the CPU plain path within 1e-3 of the range.
+  (e''') the long-video path on (e)'s video, run after (e): infer_video_depth
+      with windows_per_batch 2 and 4 (the batched keyframe cache) in bf16
+      and fp32, launch counts per call (one encode and one head per chunk),
+      fp32 within 1e-4 of the range of (e)'s sequential fp32, bf16 within
+      the drift budget of fp32; infer_video_depth_streaming at C = 1 and 4
+      equal to the batch API bit for bit; 49 frames at C = 2 (the last
+      chunk all resident: no encode), stream equal to batch; the fp16
+      transport within 2^-10 of max |d| of the fp32 transport, stream equal
+      to batch; int8 at C = 2 (K3's launches, the int8 budget against the
+      card's fp32); the window timer's spans; then, through
+      tools/bench_long_video.py's modes and measure, the wall ms per frame
+      (a second call), peak memory and torch.profiler idle share of
+      sequential (overlapped and blocking copies), C = 2, C = 4 and
+      streaming (C = 1, 4).
   (h) K6, the fused residual conv unit: the bench tool's function
       (tools/bench_rcu.py) at the four vitl 518^2 RefineNet shapes in bf16
       (error against the plain version, K6 and the two-conv path timed),
@@ -77,6 +91,9 @@ printing no result, without either. Phases, each fatal on failure:
       vits and vitl, and the cached steady state per new frame for vits;
       then a torch.profiler breakdown of the vits window by kernel kind,
       bf16 and int8.
+  (j) the port's bench (video_depth_anything_torch/bench.py) for vits at
+      --iters 3 --warmup 1, run last: its record, which may hold no
+      section error.
   (g) one JSON line {"kernels": [...]} (nine kernels), then the card's name and power
       limit, then the last line {"ok": true, "device": {...}}.
 """
@@ -95,6 +112,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 # The card's peak rates, bound_ms and time_ms are the bench tools' own; this
 # import fails, and the script exits non-zero, without the repository.
+from video_depth_anything_torch.tools.bench_long_video import (  # noqa: E402
+    measure, modes as long_video_modes)
 from video_depth_anything_torch.tools.bench_wgmma import graph_ms  # noqa: E402
 from video_depth_anything_torch.tools.timing import (  # noqa: E402
     PEAK_OPS, bound_ms, exp_ms, time_ms)
@@ -243,7 +262,10 @@ def check_switches(gen, record):
                     record("spatial_attention", name, err)
                 if name == "bfloat16" and label.endswith("cached"):
                     times["+".join(sw) or "default"] = ms = time_ms(run, 20)
-                    line += f" kernel {ms:.4f} ms"
+                    plain = time_ms(lambda sw=sw: k1.spatial_attention_plain(
+                        q, k, v, num_heads=h, scale=0.125, **sw), 3, 1)
+                    times["plain " + ("+".join(sw) or "default")] = plain
+                    line += f" kernel {ms:.4f} ms, plain {plain:.3f} ms"
                 print(line, flush=True)
             del qkv, q, k, v
         for label, b, h, s, d in (("head-major", 32, 16, 1370, 64),
@@ -938,6 +960,147 @@ def int8_path(cardname, d32):
     return runs[0][1]
 
 
+def long_video_path(cardname, d32):
+    """(e'''): the long-video path, vits at full width, on the card: the
+    batched keyframe cache at C = 2 and 4 (bf16 and fp32, launch counts per
+    call), streaming against the batch API bit for bit (C = 1, 4; n = 49 at
+    C = 2, whose last chunk encodes nothing), the fp16 transport, int8 at
+    C = 2, the window timer, then wall ms per frame, peak memory and the
+    idle share per mode. Returns (the launches of the bf16 C = 2 call, of
+    the int8 C = 2 call, the timings)."""
+    import numpy as np
+    import torch
+    from video_depth_anything_torch import kernels
+    from video_depth_anything_torch.config import get_model_config
+    from video_depth_anything_torch.models import build_model
+    from video_depth_anything_torch.pipeline import VideoDepthPipeline
+    from video_depth_anything_torch.utils.precision import (
+        INT8_MAX_ERR_FRAC, INT8_MEAN_ERR_FRAC, MAX_ERR_FRAC, MEAN_ERR_FRAC,
+        precision_drift_report, synthetic_video)
+
+    cfg = get_model_config("vits")
+    depth = cfg.vit.depth
+    model = build_model(cfg, seed=0, device="cuda")
+    pipe = VideoDepthPipeline(cfg, model)
+    frames = synthetic_video(n=100, hw=(480, 640), seed=3)     # (e)'s video, 5 windows
+    steps = {1: 5, 2: 3, 4: 2}                                 # chunks of C windows
+    rng32 = float(d32.max() - d32.min())
+
+    def counted(p, fr, **kw):
+        kernels.reset_launch_counts()
+        out, _ = p.infer_video_depth(fr, **kw)
+        torch.cuda.synchronize()
+        return out, kernels.launch_counts()
+
+    def want(**launched):
+        return {name: launched.get(name, 0) for name in kernels.KERNELS}
+
+    def stream(p, fr, **kw):
+        return np.concatenate(list(p.infer_video_depth_streaming(iter(fr), **kw)))
+
+    batch, launches = {}, {}
+    for c in (2, 4):
+        for fp32 in (False, True):
+            out, got = counted(pipe, frames, windows_per_batch=c, fp32=fp32)
+            expect = want(spatial_attention=depth * steps[c], temporal_attention=8 * steps[c])
+            name = "fp32" if fp32 else "bf16"
+            line = f"long video: C = {c} {name}, 100 frames 480x640: launches {got}"
+            if got != expect or out.shape != frames.shape[:3] or not np.isfinite(out).all():
+                raise AssertionError(f"{line}; expected {expect}")
+            if fp32:
+                err = float(np.abs(out - d32).max()) / rng32
+                line += f"; against (e)'s sequential fp32 max {err:.3e} of the range (tol 1e-4)"
+                if not err <= 1e-4:
+                    raise AssertionError(line)
+            else:
+                launches[c] = got
+            batch[c, name] = out
+            print(line, flush=True)
+        rep = precision_drift_report(batch[c, "bf16"], batch[c, "fp32"])
+        print(f"long video: C = {c} bf16 vs fp32: max {rep['max_err_frac']:.5f} / mean "
+              f"{rep['mean_err_frac']:.6f} (budget {MAX_ERR_FRAC} / {MEAN_ERR_FRAC})", flush=True)
+        if not (rep["max_err_frac"] < MAX_ERR_FRAC and rep["mean_err_frac"] < MEAN_ERR_FRAC):
+            raise AssertionError(f"C = {c} bf16 drift over budget: {rep}")
+
+    batch[1, "bf16"], _ = pipe.infer_video_depth(frames)
+    for c in (1, 4):
+        same = np.array_equal(stream(pipe, frames, windows_per_batch=c), batch[c, "bf16"])
+        print(f"long video: streaming C = {c} equals the batch API bit for bit: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"streaming C = {c} differs from the batch API")
+
+    short = frames[:49]
+    out, got = counted(pipe, short, windows_per_batch=2)
+    same = np.array_equal(stream(pipe, short, windows_per_batch=2), out)
+    print(f"long video: n = 49, C = 2 (the last chunk all resident): launches {got}; stream "
+          f"equals batch bit for bit: {same}", flush=True)
+    if got != want(spatial_attention=depth, temporal_attention=16) or not same:
+        raise AssertionError("n = 49, C = 2: a zero-size encode ran, or stream != batch")
+
+    p16 = VideoDepthPipeline(cfg, model, transfer_fp16=True)
+    h16, _ = p16.infer_video_depth(frames, windows_per_batch=2)
+    ref = batch[2, "bf16"]
+    err, tol = float(np.abs(h16 - ref).max()), 2.0 ** -10 * float(np.abs(ref).max())
+    same = np.array_equal(stream(p16, frames, windows_per_batch=2), h16)
+    print(f"long video: transfer_fp16 C = 2: max {err:.3e} from the fp32 transport (tol "
+          f"{tol:.3e}); stream equals batch bit for bit: {same}", flush=True)
+    if not (err <= tol and same and h16.dtype == np.float32):
+        raise AssertionError("transfer_fp16 off the fp32 transport, or stream != batch")
+    del p16
+
+    p8 = VideoDepthPipeline(cfg, model, quant="int8")     # calibrates: one float window
+    d8, got8 = counted(p8, frames, windows_per_batch=2)
+    rep = precision_drift_report(d8, batch[2, "fp32"])
+    print(f"long video: int8 C = 2: launches {got8}; against the card's fp32 C = 2 max "
+          f"{rep['max_err_frac']:.5f} / mean {rep['mean_err_frac']:.6f} (budget "
+          f"{INT8_MAX_ERR_FRAC} / {INT8_MEAN_ERR_FRAC})", flush=True)
+    if got8 != want(spatial_attention=depth, temporal_attention=8 * (steps[2] + 1),
+                    spatial_attention_qk8=depth * steps[2]):
+        raise AssertionError(f"int8 C = 2 launch counts {got8}")
+    if not (rep["max_err_frac"] < INT8_MAX_ERR_FRAC and rep["mean_err_frac"] < INT8_MEAN_ERR_FRAC):
+        raise AssertionError(f"int8 C = 2 drift over budget: {rep}")
+    del p8
+
+    pipe.infer_video_depth(frames, windows_per_batch=2, collect_timings=True)
+    spans = pipe.timer.summary()
+    print(f"long video: C = 2 window timer: {json.dumps(spans)}", flush=True)
+    if set(spans) != {"window_forward", "gather_upload"} or spans["window_forward"]["count"] != 3:
+        raise AssertionError(f"window timer spans {spans}")
+
+    timings = {name: measure(call, len(frames), repeats=1)
+               for name, call in long_video_modes(pipe, frames).items()}
+    for name, t in timings.items():
+        print(f"long video timing on {cardname}, vits bf16, 100 frames 480x640 -> 518x686, "
+              f"{name}: {t['ms_per_frame']:.3f} ms/frame (wall, second call), peak "
+              f"{t['peak_gib']:.2f} GiB; profiled wall {t['profiled_wall_ms']:.1f} ms, kernels "
+              f"busy {t['kernel_busy_ms']:.1f} ms, copies {t['copy_ms']:.1f} ms, idle share "
+              f"{t['idle_share']:.3f}", flush=True)
+    del pipe, model, batch
+    torch.cuda.empty_cache()
+    return launches[2], got8, timings
+
+
+def bench_phase():
+    """(j): the port's bench for vits at --iters 3 --warmup 1 (its main, in
+    this process); its record is printed, and a section error fails."""
+    import contextlib
+    import io
+
+    from video_depth_anything_torch import bench
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(["--encoder", "vits", "--iters", "3", "--warmup", "1"])
+    record = json.loads(out.getvalue().strip().splitlines()[-1])
+    print(f"bench (j), {time.perf_counter() - t0:.1f} s, rc {rc}: record {json.dumps(record)}",
+          flush=True)
+    errors = [k for k in record if k.endswith("_error")]
+    if rc != 0 or errors or record.get("value") is None:
+        raise AssertionError(f"bench: rc {rc}, errors {errors}")
+    return record
+
+
 def _int8_model(model, x):
     """The int8 model calibrated on x (one window)."""
     from video_depth_anything_torch.ops.quant import quantize_model
@@ -1038,7 +1201,7 @@ def breakdown(cardname, mode="bf16"):
         share[kind] = share.get(kind, 0.0) + ms
     print(f"breakdown: vits {mode} window forward 1x32x518x518 on {cardname}: wall "
           f"{wall:.2f} ms (profiled), device busy {busy:.2f} ms, idle share "
-          f"{max(0.0, 1 - busy / wall):.3f}", flush=True)
+          f"{1 - busy / wall:.3f}", flush=True)
     for kind, ms in sorted(share.items(), key=lambda kv: -kv[1]):
         print(f"  {kind:32s} {ms:8.3f} ms  {100 * ms / busy:5.1f} %", flush=True)
     for key, ms, count in rows[:16]:
@@ -1098,12 +1261,14 @@ def main() -> int:
     probe_entries, launches_tools = probe_path(cardname, probe_inputs, probe_plain)
     del probe_inputs
     launches, d32 = main_path(cardname)
+    launches_long, launches_long_int8, long_timings = long_video_path(cardname, d32)
     launches_int8 = int8_path(cardname, d32)
     launches_k4 = head_major_path(cardname)
     launches_k6 = rcu_cascade(cardname)
     timing(cardname)
     breakdown(cardname)
     breakdown(cardname, "int8")
+    bench_record = bench_phase()
 
     # Each kernel's launches are counted on its own path: K1 and K2 on the
     # bf16 main path, K3 on the first int8 call, K4 on the head-dim-32
@@ -1158,6 +1323,8 @@ def main() -> int:
             "launches": m["path"][name],
             "sass": {op.lower(): n for op, n in ops.items()},
             "launches_int8_first_call": launches_int8[name],
+            "launches_long_video_c2": launches_long[name],
+            "launches_long_video_int8_c2": launches_long_int8[name],
             "max_abs_err": max(errs[(name, "bfloat16")], fp32 or 0.0),
             "max_abs_err_bf16": errs[(name, "bfloat16")],
             "max_abs_err_fp32": fp32,
@@ -1172,6 +1339,8 @@ def main() -> int:
                if name in ("spatial_attention", "attention_head_major",
                            "spatial_attention_qkv_fused") else {}),
         })
+    print("long video and bench summary: " + json.dumps(
+        {"long_video": long_timings, "bench": bench_record}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(cardname, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

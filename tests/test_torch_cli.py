@@ -16,6 +16,9 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "video_depth_anything_torch"
+# Two intra-op threads per CLI process: beside the other test workers, one
+# thread per core oversubscribes the cores and the runs take 10x longer.
+ENV = {**os.environ, "OMP_NUM_THREADS": "2"}
 
 _DRIVER = """
 import sys
@@ -28,12 +31,12 @@ for name, extra in [("bf16", []), ("fp32", ["--fp32"]), ("metric", ["--metric", 
 """
 
 
-def _write_clip(tmp_path):
+def _write_clip(tmp_path, n=12):
     cv2 = pytest.importorskip("cv2")
     from video_depth_anything_torch.utils.precision import synthetic_video
 
     video = str(tmp_path / "clip.mp4")
-    frames = synthetic_video(n=12, hw=(48, 64))
+    frames = synthetic_video(n=n, hw=(48, 64))
     w = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 10, (64, 48))
     for f in frames:
         w.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
@@ -44,7 +47,7 @@ def _write_clip(tmp_path):
 def test_cli_all_modes(tmp_path):
     video = _write_clip(tmp_path)
     res = subprocess.run([sys.executable, "-c", _DRIVER.format(video=video, out=str(tmp_path))],
-                         capture_output=True, text=True, cwd=ROOT, timeout=600)
+                         capture_output=True, text=True, cwd=ROOT, env=ENV, timeout=600)
     assert res.returncode == 0, f"CLI failed:\n{res.stdout}\n{res.stderr}"
     for name in ("bf16", "fp32", "metric"):
         assert f"DONE {name}" in res.stdout
@@ -84,7 +87,7 @@ def test_cli_int8_random_init_and_checkpoint_side_file(tmp_path):
     depths."""
     video = _write_clip(tmp_path)
     res = subprocess.run([sys.executable, "-c", _DRIVER_INT8.format(video=video, out=str(tmp_path))],
-                         capture_output=True, text=True, cwd=ROOT, timeout=600)
+                         capture_output=True, text=True, cwd=ROOT, env=ENV, timeout=600)
     assert res.returncode == 0, f"CLI failed:\n{res.stdout}\n{res.stderr}"
     assert "DONE random" in res.stdout and "DONE ckpt" in res.stdout
     assert not list((tmp_path / "random").glob("*.int8calib.npz"))
@@ -101,6 +104,68 @@ def test_cli_int8_random_init_and_checkpoint_side_file(tmp_path):
         assert "__calib_meta__/net_hw" in side.files and "encoder/q_out" in side.files
 
 
+_LONG_VIDEO_RUNS = """
+import glob, os
+import numpy as np
+from video_depth_anything_torch import run
+from video_depth_anything_torch.pipeline import VideoDepthPipeline
+base = ["--encoder", "vits", "--random_init", "--input_video", {video!r}, "--input_size", "28",
+        "--max_res", "64", "--save_npz", "--device", "cpu", "--fp32"]
+runs = {{"batch": [], "stream": ["--streaming"], "c2": ["--windows_per_batch", "2"],
+        "stream_c2": ["--streaming", "--windows_per_batch", "2", "--profile_dir", {out!r} + "/trace"],
+        "fp16": ["--transfer_fp16"],
+        "int8_c2": ["--int8", "--windows_per_batch", "2"],
+        "int8_stream_c2": ["--int8", "--streaming", "--windows_per_batch", "2"]}}
+for name, extra in runs.items():
+    run.main(base + ["--output_dir", {out!r} + "/" + name] + extra)
+    print("DONE", name, flush=True)
+
+def broken(self, frame_iter, **kw):   # dies after its first chunk
+    for f in frame_iter:
+        yield np.zeros((1, *f.shape[:2]), np.float32)
+        raise RuntimeError("boom")
+
+VideoDepthPipeline.infer_video_depth_streaming = broken
+try:
+    run.main(base + ["--output_dir", {out!r} + "/failed", "--streaming"])
+except RuntimeError:
+    print("RAISED", sorted(os.listdir({out!r} + "/failed")), flush=True)
+"""
+
+
+def test_cli_streaming_windows_per_batch_and_fp16_transport(tmp_path):
+    """--streaming equals the batch run bit for bit at the same
+    --windows_per_batch (with --int8 too); --windows_per_batch 2 is within the
+    batched cache's 1e-5 of the sequential run; --transfer_fp16 within 2^-10
+    of max |d| of the fp32 transport. No spool file is left behind, by a
+    finished run or by one that failed mid-stream. --profile_dir writes its
+    trace."""
+    video = _write_clip(tmp_path, n=50)
+    res = subprocess.run([sys.executable, "-c", _LONG_VIDEO_RUNS.format(video=video, out=str(tmp_path))],
+                         capture_output=True, text=True, cwd=ROOT, env=ENV, timeout=600)
+    assert res.returncode == 0, f"CLI failed:\n{res.stdout}\n{res.stderr}"
+    d = {}
+    for name in ("batch", "stream", "c2", "stream_c2", "fp16", "int8_c2", "int8_stream_c2"):
+        assert f"DONE {name}" in res.stdout
+        d[name] = np.load(tmp_path / name / "clip_depths.npz")["depths"]
+        assert d[name].shape == (50, 48, 64) and d[name].dtype == np.float32
+        assert np.isfinite(d[name]).all()
+        for suffix in ("_src.mp4", "_vis.mp4"):
+            assert (tmp_path / name / ("clip" + suffix)).stat().st_size > 0
+    np.testing.assert_array_equal(d["stream"], d["batch"])
+    np.testing.assert_array_equal(d["stream_c2"], d["c2"])
+    np.testing.assert_array_equal(d["int8_stream_c2"], d["int8_c2"])
+    np.testing.assert_allclose(d["c2"], d["batch"], rtol=1e-5, atol=1e-5)
+    assert np.abs(d["fp16"] - d["batch"]).max() <= 2.0 ** -10 * np.abs(d["batch"]).max()
+    for streamed, batch in (("stream", "batch"), ("stream_c2", "c2")):   # the same files
+        for suffix in ("_src.mp4", "_vis.mp4"):
+            a, b = (tmp_path / x / ("clip" + suffix) for x in (streamed, batch))
+            assert a.read_bytes() == b.read_bytes(), (streamed, suffix)
+    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0   # --profile_dir
+    assert "RAISED ['clip_src.mp4']" in res.stdout, res.stdout
+    assert not list(tmp_path.rglob("*.spool.f32"))
+
+
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import video_depth_anything_torch as pkg
@@ -110,6 +175,8 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "video_depth_anything_tpu")))
 print("LOADED", len([m for m in sys.modules if m.startswith(pkg.__name__)]))
 print("BAD", bad)
+print("HAS", all(pkg.__name__ + "." + m in sys.modules for m in (
+    "bench", "run", "pipeline.infer", "utils.profiling", "utils.video_io")))
 """
 
 
@@ -119,6 +186,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          text=True, cwd=ROOT, env=env, timeout=300)
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
+    assert "HAS True" in res.stdout, res.stdout   # the long-video path's modules too
     assert int(res.stdout.split("LOADED")[1].split()[0]) >= 28, res.stdout
 
 

@@ -19,6 +19,7 @@ measured on the CPU (the same run with every absmax scaled by 1 + 1e-6,
 utils/precision.py::flip_floor_report).
 """
 import copy
+import functools
 
 import numpy as np
 import pytest
@@ -36,7 +37,7 @@ from video_depth_anything_torch.kernels import spatial_attention_qkv as k5
 from video_depth_anything_torch.kernels import temporal_attention as k2
 from video_depth_anything_torch.models import build_model
 from video_depth_anything_torch.models.dpt import FeatureFusionBlock
-from video_depth_anything_torch.pipeline import VideoDepthPipeline
+from video_depth_anything_torch.pipeline import VideoDepthPipeline, infer
 from video_depth_anything_torch.utils.precision import synthetic_video
 
 
@@ -517,3 +518,70 @@ def test_t3_persistent_walk_matches_plain_version(card, steps, m, n):
         assert torch.isfinite(got).all()
         assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
     assert kernels.launch_counts() == counts(qk_probes=2)
+
+
+def _stream(pipe, frames, **kw):
+    return np.concatenate(list(pipe.infer_video_depth_streaming(iter(frames), **kw)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 4])
+def test_overlapped_transfers_equal_blocking_copies(card, c, monkeypatch):
+    """The long-video path's copies (pinned staging one chunk ahead on a copy
+    stream, downloads read one chunk late) against blocking copies from
+    pageable memory, bit for bit, over a 5-window video (a race shows up as
+    wrong frames); streaming equals the batch API bit for bit; the launches
+    are one encode and one head per chunk."""
+    cfg = get_model_config("vits")
+    model = build_model(cfg, seed=0, device="cuda")
+    frames = synthetic_video(n=100, hw=(140, 196), seed=7)
+    kw = dict(input_size=112, windows_per_batch=c)
+    monkeypatch.setattr(infer, "HostLink", functools.partial(infer.HostLink, overlap=False))
+    ref, _ = VideoDepthPipeline(cfg, model).infer_video_depth(frames, **kw)
+    monkeypatch.undo()
+    pipe = VideoDepthPipeline(cfg, model)
+    kernels.reset_launch_counts()
+    got, _ = pipe.infer_video_depth(frames, **kw)
+    steps = 5 if c == 1 else 2
+    assert kernels.launch_counts() == counts(spatial_attention=12 * steps,
+                                             temporal_attention=8 * steps)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(_stream(pipe, frames, **kw), got)
+    hp = VideoDepthPipeline(cfg, model, transfer_fp16=True)
+    h16, _ = hp.infer_video_depth(frames, **kw)
+    assert np.abs(h16 - got).max() <= 2.0 ** -10 * np.abs(got).max()
+    np.testing.assert_array_equal(_stream(hp, frames, **kw), h16)
+
+
+@pytest.mark.cuda
+def test_fully_resident_last_chunk_on_the_card(card):
+    """n = 49 at C = 2: the last chunk's frames are all resident, so it runs
+    the head alone (K1 would take no empty batch); stream equals batch."""
+    cfg = get_model_config("vits")
+    pipe = VideoDepthPipeline(cfg, build_model(cfg, seed=0, device="cuda"))
+    frames = synthetic_video(n=49, hw=(140, 196), seed=8)
+    kernels.reset_launch_counts()
+    got, _ = pipe.infer_video_depth(frames, input_size=112, windows_per_batch=2)
+    assert kernels.launch_counts() == counts(spatial_attention=12, temporal_attention=16)
+    assert got.shape == frames.shape[:3] and np.isfinite(got).all()
+    np.testing.assert_array_equal(
+        _stream(pipe, frames, input_size=112, windows_per_batch=2), got)
+
+
+@pytest.mark.cuda
+def test_vitl_four_windows_per_batch_at_518(card):
+    """vitl, C = 4 at 518 x 518 (the head on [4, 32]): its peak device memory
+    is printed; within the bf16 drift budget of the sequential cache."""
+    from video_depth_anything_torch.utils.precision import (MAX_ERR_FRAC, MEAN_ERR_FRAC,
+                                                            precision_drift_report)
+
+    cfg = get_model_config("vitl")
+    pipe = VideoDepthPipeline(cfg, build_model(cfg, seed=0, device="cuda"))
+    frames = synthetic_video(n=100, hw=(518, 518), seed=9)
+    seq, _ = pipe.infer_video_depth(frames)
+    torch.cuda.reset_peak_memory_stats()
+    got, _ = pipe.infer_video_depth(frames, windows_per_batch=4)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"vitl 518x518, 100 frames, windows_per_batch=4: peak {peak:.2f} GiB")
+    rep = precision_drift_report(got, seq)
+    assert rep["max_err_frac"] < MAX_ERR_FRAC and rep["mean_err_frac"] < MEAN_ERR_FRAC, rep

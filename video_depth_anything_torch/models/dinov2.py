@@ -26,7 +26,7 @@ from ..kernels.spatial_attention import spatial_attention
 from ..kernels.spatial_attention_qk8 import spatial_attention_qk8
 from ..ops import nn as vnn
 from ..ops import quant
-from ..ops.resize import cubic_resize_matrix
+from ..ops.resize import device_matrix
 
 
 def interpolate_pos_encoding(pos_embed: torch.Tensor, ph: int, pw: int,
@@ -42,9 +42,10 @@ def interpolate_pos_encoding(pos_embed: torch.Tensor, ph: int, pw: int,
     dim = pos_embed.shape[-1]
     cls_pos = pos_embed[:, :1].float()
     patch = pos_embed[:, 1:].float().reshape(g, g, dim)
-    mh = cubic_resize_matrix(g, ph, scale=(ph + cfg.interpolate_offset) / g)
-    mw = cubic_resize_matrix(g, pw, scale=(pw + cfg.interpolate_offset) / g)
-    mh, mw = (torch.from_numpy(m.copy()).to(patch.device) for m in (mh, mw))
+    mh = device_matrix("cubic", g, ph, (ph + cfg.interpolate_offset) / g, patch.device,
+                       torch.float32)
+    mw = device_matrix("cubic", g, pw, (pw + cfg.interpolate_offset) / g, patch.device,
+                       torch.float32)
     patch = torch.einsum("oh,hwd->owd", mh, patch)
     patch = torch.einsum("pw,owd->opd", mw, patch)
     return torch.cat([cls_pos, patch.reshape(1, ph * pw, dim)], dim=1)

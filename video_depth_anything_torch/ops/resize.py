@@ -73,16 +73,23 @@ def linear_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
     return mat
 
 
-def _as_tensor(mat: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(np.array(mat)).to(device=like.device,
-                                               dtype=like.dtype)
+@functools.lru_cache(maxsize=256)
+def device_matrix(kind: str, in_size: int, out_size: int, scale: float | None,
+                  device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The ``kind`` ("cubic" or "linear") matrix on ``device`` in ``dtype``,
+    copied there once. A host-to-device copy from pageable memory waits for
+    the device's queue to drain, so a copy per call would stall the host
+    behind the card on every resize."""
+    mat = (cubic_resize_matrix(in_size, out_size, scale) if kind == "cubic"
+           else linear_resize_matrix(in_size, out_size))
+    return torch.from_numpy(np.array(mat)).to(device=device, dtype=dtype)
 
 
-def apply_separable(x: torch.Tensor, mh: np.ndarray,
-                    mw: np.ndarray) -> torch.Tensor:
+def apply_separable(x: torch.Tensor, mh: torch.Tensor,
+                    mw: torch.Tensor) -> torch.Tensor:
     """Apply [Ho, H] and [Wo, W] factors to x[..., H, W, C] in x's dtype."""
-    x = torch.einsum("oh,...hwc->...owc", _as_tensor(mh, x), x)
-    return torch.einsum("pw,...owc->...opc", _as_tensor(mw, x), x)
+    x = torch.einsum("oh,...hwc->...owc", mh, x)
+    return torch.einsum("pw,...owc->...opc", mw, x)
 
 
 def resize_bicubic_half_pixel(x: torch.Tensor, out_hw: tuple[int, int],
@@ -93,8 +100,8 @@ def resize_bicubic_half_pixel(x: torch.Tensor, out_hw: tuple[int, int],
     given."""
     h, w = x.shape[-3], x.shape[-2]
     sh, sw = (None, None) if scale_hw is None else scale_hw
-    return apply_separable(x, cubic_resize_matrix(h, out_hw[0], sh),
-                           cubic_resize_matrix(w, out_hw[1], sw))
+    return apply_separable(x, device_matrix("cubic", h, out_hw[0], sh, x.device, x.dtype),
+                           device_matrix("cubic", w, out_hw[1], sw, x.device, x.dtype))
 
 
 def resize_bilinear_align_corners(x: torch.Tensor,
@@ -104,5 +111,5 @@ def resize_bilinear_align_corners(x: torch.Tensor,
     h, w = x.shape[-3], x.shape[-2]
     if (h, w) == tuple(out_hw):
         return x
-    return apply_separable(x, linear_resize_matrix(h, out_hw[0]),
-                           linear_resize_matrix(w, out_hw[1]))
+    return apply_separable(x, device_matrix("linear", h, out_hw[0], None, x.device, x.dtype),
+                           device_matrix("linear", w, out_hw[1], None, x.device, x.dtype))

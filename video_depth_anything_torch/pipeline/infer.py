@@ -1,39 +1,83 @@
 """VideoDepthPipeline: sliding-window video depth on one device.
 
-The port of the JAX package's ``pipeline/infer.py``'s
-``infer_video_depth`` in its two single-device modes:
+The port of the JAX package's ``pipeline/infer.py``.
+``infer_video_depth(frames)`` returns ``(depths [N, H, W] float32, fps)``
+through one of three forward modes, numerically interchangeable:
 
-- sequential keyframe cache (the default): the encoder is strictly
-  per-frame and each window's first OVERLAP inputs are the previous
-  window's KEYFRAMES inputs, so their tap features are reused and only the
-  22 new frames are encoded; the temporal head sees all 32.
-- plain (``cache_keyframe_features=False``): the full 32-frame forward per
-  window.
+- sequential keyframe cache (``windows_per_batch=1``, the default): the
+  encoder is strictly per-frame and each window's first OVERLAP inputs are
+  the previous window's KEYFRAMES inputs, so their tap features are reused
+  and only the 22 new frames are encoded; the temporal head sees all 32.
+- batched keyframe cache (``windows_per_batch=C > 1``): every window row
+  is a source frame index (``windows.py``), so a chunk of C windows needs
+  each unique source frame encoded once. The frames not yet resident are
+  encoded, each window's features are gathered (``index_select``) from
+  concat(resident, new), the head runs on [C, 32], and the last window's
+  10 keyframe features stay resident on the device for the next chunk.
+- plain (``cache_keyframe_features=False``): the full 32-frame forward,
+  C windows per chunk.
 
-Both return ``(depths [N, H, W] float32, fps)``. Preprocessing, the
-forward, the resize to source resolution and the fp32 stitching all run on
-the pipeline's device; each window's finalised frames are then copied to
-the host.
+``infer_video_depth_streaming(frame_iter)`` runs the two cached modes on a
+frame iterator in bounded host memory (C = 1: one window of frames; C > 1:
+one chunk's new frames, the keyframe features staying on the device). Its
+chunks concatenate to ``infer_video_depth``'s result with the same C, bit
+for bit.
 
-``quant="int8"`` runs both modes with the int8 model of ``ops/quant.py``,
-calibrated on the first window's frames; with ``calib_path`` the
-activation absmaxes persist in an ``.npz`` side file stamped with the
-calibration geometry (the JAX package's format, so either package reads
-the other's file) and are reused while the geometry matches.
+No shape buckets: the JAX package pads each encode batch to 22C + 10 or 22C
+rows and the tail chunk to C windows, because jit compiles a program per
+shape. Eager PyTorch needs neither, so the port encodes exactly a chunk's
+new frames (no encode at all when every frame the chunk needs is
+resident) and runs the tail chunk's head on its own r windows.
+
+Transfers, on a card: each chunk's frames (and the batched cache's slot
+indices) are staged in pinned host buffers, two per kind used in turn (a
+buffer is refilled only after its last copy completed), and copied with
+``non_blocking=True`` on a copy stream right after the previous chunk's
+compute is enqueued; the compute stream waits on the copy's event. Each
+chunk's finalised frames are copied into pinned host memory with
+``non_blocking=True`` and read one chunk later, after their event.
+``transfer_fp16=True`` casts only the emitted frames (and the last tail) to
+fp16 on the device: the stitch carry stays fp32 and the results are fp32.
+On the CPU, and with ``HostLink(overlap=False)`` (the reference the
+overlapped path is tested against on a card), every copy is blocking.
+
+Stitching is fp32 on the device, window by window (``stitch.py``). ReLU and
+the resize to source resolution come in each JAX mode's order: the
+sequential cache resizes, then applies ReLU; the plain and batched modes
+apply ReLU at network resolution, then resize. They differ where the head
+output is negative, and each mode is held to its JAX counterpart.
+
+``collect_timings=True`` times the spans ``window_forward`` (a chunk's
+compute, the card synchronised at its end) and ``gather_upload`` (the next
+chunk's gather and upload inside it) in ``self.timer``
+(``utils/profiling.py::WindowTimer``).
+
+``quant="int8"`` runs every mode with the int8 model of ``ops/quant.py``,
+calibrated on the first window's frames (streaming buffers that whole
+window before any compute, so both APIs calibrate on the same frames);
+with ``calib_path`` the activation absmaxes persist in an ``.npz`` side
+file stamped with the calibration geometry (the JAX package's format, so
+either package reads the other's file) and are reused while the geometry
+matches.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import dataclasses
+import math
 import os
 import warnings
 import zipfile
+from typing import Iterator, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
-from ..config import INFER_LEN, KEYFRAMES, OVERLAP, ModelConfig
+from ..config import FRAME_STEP, INFER_LEN, KEYFRAMES, OVERLAP, ModelConfig
 from ..ops import quant as quant_ops
 from ..ops.resize import resize_bilinear_align_corners
+from ..utils.profiling import WindowTimer
 from ..utils.tree import flatten_tree, unflatten_tree
 from . import preprocess, stitch, windows
 
@@ -114,9 +158,263 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+
+class Chunk(NamedTuple):
+    """One device step: the source frames to upload ([H, W, 3] arrays,
+    stacked in the upload's own buffer), its window count r, and (batched
+    cache) the slot indices rel [r * 32] then res_rel [10]."""
+    frames: Sequence[np.ndarray]
+    r: int
+    index: np.ndarray | None = None
+
+
+def slot_plan(sel: np.ndarray, res_ids: np.ndarray | None):
+    """Host bookkeeping of one batched-cache chunk: windows ``sel`` [r, 32]
+    of source frame ids, ``res_ids`` the 10 ids whose features are resident
+    (None on the first chunk). -> (new_ids to encode, the index of
+    ``Chunk``, the ids resident after the chunk). The feature table is
+    concat(resident, new) on the frame axis; ``new_ids`` is empty when
+    every frame is resident."""
+    uniq = np.unique(sel)
+    if res_ids is None:
+        new_ids, slot, off = uniq, {}, 0
+    else:
+        new_ids = np.setdiff1d(uniq, res_ids)
+        slot, off = {int(f): j for j, f in enumerate(res_ids)}, len(res_ids)
+    slot.update({int(f): off + j for j, f in enumerate(new_ids)})
+    last_kf = sel[-1][np.asarray(KEYFRAMES)]
+    index = np.asarray([slot[int(f)] for f in sel.reshape(-1)]
+                       + [slot[int(f)] for f in last_kf], np.int64)
+    return new_ids, index, last_kf
+
+
+class SequentialKeyframeCache:
+    """Window by window: the frames uploaded are encoded, the previous
+    window's KEYFRAMES features are reused; resize to source, then ReLU."""
+
+    def __init__(self, model, ph: int, pw: int, net_hw, src_hw, dtype, device):
+        self.model, self.ph, self.pw = model, ph, pw
+        self.net_hw, self.src_hw, self.dtype = net_hw, src_hw, dtype
+        self.kf = torch.tensor(KEYFRAMES, device=device)
+        self.feats = None
+
+    def __call__(self, frames: torch.Tensor, index, r: int) -> torch.Tensor:
+        new = self.model.encode(preprocess.preprocess_frames(frames, self.net_hw, self.dtype))
+        if self.feats is not None:
+            kf = self.kf
+            new = [(torch.cat([pt[kf], nt]), torch.cat([pc[kf], nc]))
+                   for (pt, pc), (nt, nc) in zip(self.feats, new)]
+        self.feats = new
+        depth = self.model.head(new, self.ph, self.pw, 1, INFER_LEN)
+        depth = resize_bilinear_align_corners(depth.float(), self.src_hw)
+        return torch.relu(depth)[..., 0][None]                # [1, 32, H, W]
+
+
+class BatchedKeyframeCache:
+    """A chunk of r windows: the new frames encoded once (none when all are
+    resident), each window's features gathered from concat(resident, new),
+    the head on [r, 32]; ReLU at network resolution, then the resize. The
+    last window's KEYFRAMES features stay in ``resident``."""
+
+    def __init__(self, model, ph: int, pw: int, net_hw, src_hw, dtype):
+        self.model, self.ph, self.pw = model, ph, pw
+        self.net_hw, self.src_hw, self.dtype = net_hw, src_hw, dtype
+        self.resident = None     # 4 taps x (patch [10, P, D], cls [10, D])
+
+    def __call__(self, frames: torch.Tensor, index: torch.Tensor, r: int) -> torch.Tensor:
+        rel, res_rel = index[: r * INFER_LEN], index[r * INFER_LEN:]
+        table = self.resident
+        if frames.shape[0]:   # K1's grid takes no empty batch
+            new = self.model.encode(preprocess.preprocess_frames(frames, self.net_hw, self.dtype))
+            table = new if table is None else [
+                (torch.cat([rt, nt]), torch.cat([rc, nc]))
+                for (rt, rc), (nt, nc) in zip(table, new)]
+        feats = [(t.index_select(0, rel), c.index_select(0, rel)) for t, c in table]
+        self.resident = [(t.index_select(0, res_rel), c.index_select(0, res_rel))
+                         for t, c in table]
+        depth = self.model.head(feats, self.ph, self.pw, r, INFER_LEN)
+        depth = resize_bilinear_align_corners(torch.relu(depth.float()), self.src_hw)
+        return depth[..., 0].reshape(r, INFER_LEN, *self.src_hw)
+
+
+class PlainWindows:
+    """The full forward of r windows of 32 uploaded frames (ReLU at network
+    resolution inside the model), then the resize to source."""
+
+    def __init__(self, model, net_hw, src_hw, dtype):
+        self.model, self.net_hw, self.src_hw, self.dtype = model, net_hw, src_hw, dtype
+
+    def __call__(self, frames: torch.Tensor, index, r: int) -> torch.Tensor:
+        x = preprocess.preprocess_frames(frames, self.net_hw, self.dtype)
+        depth = self.model(x.reshape(r, INFER_LEN, *x.shape[1:]))   # [r, 32, h, w]
+        depth = depth.reshape(r * INFER_LEN, *depth.shape[2:], 1)
+        depth = resize_bilinear_align_corners(depth.float(), self.src_hw)
+        return torch.relu(depth)[..., 0].reshape(r, INFER_LEN, *self.src_hw)
+
+
+class HostLink:
+    """Host <-> device copies of one pipeline call.
+
+    With ``overlap`` on a card: an upload is staged in a pinned buffer (two
+    per kind, used in turn; a buffer is refilled only once the event of its
+    previous copy has completed), copied with ``non_blocking=True`` on a
+    copy stream, and the compute stream waits on the copy's event; a
+    download goes to a fresh pinned tensor with ``non_blocking=True`` on the
+    compute stream and is read only after its event. Otherwise (the CPU, or
+    ``overlap=False``) every copy is blocking.
+    """
+
+    def __init__(self, device: torch.device, overlap: bool = True):
+        self.device = device
+        self.overlap = overlap and device.type == "cuda"
+        if self.overlap:
+            self.compute = torch.cuda.current_stream(device)
+            self.stream = torch.cuda.Stream(device)
+            self.staging: dict[str, list] = {}
+
+    def upload(self, rows: Sequence[np.ndarray], kind: str) -> torch.Tensor:
+        """``rows`` stacked on a new first axis, on the device; an empty
+        sequence gives an empty tensor."""
+        if not len(rows):
+            return torch.empty((0,), device=self.device)
+        if not self.overlap:
+            return torch.from_numpy(np.stack(rows)).to(self.device)
+        shape = (len(rows), *np.shape(rows[0]))
+        dtype = torch.from_numpy(np.empty(0, np.asarray(rows[0]).dtype)).dtype
+        slots = self.staging.setdefault(kind, [[None, None], [None, None]])
+        slots.append(slots.pop(0))              # the buffer of two uploads ago
+        buf, done = slots[-1]
+        if done is not None:
+            done.synchronize()                  # its last copy has left the buffer
+        nbytes = math.prod(shape) * dtype.itemsize
+        if buf is None or buf.numel() < nbytes:
+            buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        host = buf[:nbytes].view(dtype).view(shape)
+        np.stack(rows, out=host.numpy())        # the gather is the one host copy
+        with torch.cuda.stream(self.stream):
+            dev = torch.empty(shape, dtype=dtype, device=self.device)
+            dev.copy_(host, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        self.compute.wait_event(done)
+        dev.record_stream(self.compute)         # freed only after the compute's uses
+        slots[-1] = [buf, done]
+        return dev
+
+    def download(self, t: torch.Tensor):
+        if not self.overlap:
+            return t.cpu()
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(self.compute)
+        return host, done
+
+    def fetch(self, pending) -> np.ndarray:
+        if not self.overlap:
+            return pending.numpy()
+        host, done = pending
+        done.synchronize()
+        return host.numpy()
+
+
+@dataclasses.dataclass
+class _Stream:
+    """What a frame iterator has delivered so far."""
+    n: int
+    ended: bool
+
+
+def _sequential_chunks(frames, idx) -> Iterator[Chunk]:
+    for i, row in enumerate(idx):
+        yield Chunk([frames[f] for f in (row if i == 0 else row[OVERLAP:])], 1)
+
+
+def _plain_chunks(frames, idx, c) -> Iterator[Chunk]:
+    for s in range(0, len(idx), c):
+        sel = idx[s:s + c]
+        yield Chunk([frames[f] for f in sel.reshape(-1)], len(sel))
+
+
+def _batched_chunks(frames, idx, c) -> Iterator[Chunk]:
+    res_ids = None
+    for s in range(0, len(idx), c):
+        sel = idx[s:s + c]
+        new_ids, index, res_ids = slot_plan(sel, res_ids)
+        yield Chunk([frames[f] for f in new_ids], len(sel), index)
+
+
+def _stream_sequential(it, first, state: _Stream) -> Iterator[Chunk]:
+    """C = 1 from an iterator: window 0 is ``first`` padded with its last
+    frame; each later window takes the next FRAME_STEP frames, padded with
+    the last frame at the end of the stream."""
+    last = first[-1]
+    yield Chunk(first + [last] * (INFER_LEN - len(first)), 1)
+    del first
+    k = 1
+    while not (state.ended and k >= windows.num_windows(state.n)):
+        new = []
+        if not state.ended:
+            for f in it:
+                new.append(np.asarray(f))
+                if len(new) == FRAME_STEP:
+                    break
+            state.n += len(new)
+            state.ended = len(new) < FRAME_STEP
+            last = new[-1] if new else last
+        yield Chunk(new + [last] * (FRAME_STEP - len(new)), 1)
+        k += 1
+
+
+def _stream_batched(it, first, c: int, state: _Stream) -> Iterator[Chunk]:
+    """C > 1 from an iterator: the windows' rows follow the unclamped
+    recurrence of ``windows.py`` (clamped to the last frame once the stream
+    ended); frames are read as far as a chunk needs and dropped once no
+    later window can reference them (the largest encoded id is kept: rows
+    clamped at the end of the stream come back to it)."""
+    store = dict(enumerate(first))
+    hi_read = len(first)
+    del first
+    kf_pos = np.asarray(KEYFRAMES)
+    res_ids, prev_row, s = None, None, 0
+    while True:
+        raw_rows = []
+        for k in range(s, s + c):
+            row = (np.arange(INFER_LEN, dtype=np.int64) if k == 0 else np.concatenate(
+                [prev_row[kf_pos], k * FRAME_STEP + np.arange(OVERLAP, INFER_LEN, dtype=np.int64)]))
+            raw_rows.append(row)
+            prev_row = row
+        while not state.ended and hi_read <= raw_rows[-1].max():
+            f = next(it, None)
+            if f is None:
+                state.ended = True
+                break
+            store[hi_read] = np.asarray(f)
+            hi_read += 1
+            state.n += 1
+        k_total = windows.num_windows(state.n) if state.ended else None
+        if state.ended:
+            r = min(c, k_total - s)
+            sel = np.minimum(np.stack(raw_rows[:r]), state.n - 1)
+        else:
+            r, sel = c, np.stack(raw_rows)
+        new_ids, index, res_ids = slot_plan(sel, res_ids)
+        frames = [store[int(i)] for i in new_ids]
+        keep_from = int(new_ids.max()) if len(new_ids) else hi_read - 1
+        if state.ended:
+            keep_from = min(keep_from, state.n - 1)
+        for fid in [f for f in store if f < keep_from]:
+            del store[fid]
+        yield Chunk(frames, r, index)
+        s += c
+        if k_total is not None and s >= k_total:
+            return
+
+
 class VideoDepthPipeline:
     def __init__(self, cfg: ModelConfig, model: torch.nn.Module, device=None,
-                 quant: str | None = None, calib_path: str | None = None):
+                 quant: str | None = None, calib_path: str | None = None,
+                 transfer_fp16: bool = False):
         if quant not in (None, "int8"):
             raise ValueError(f"quant={quant!r}; the pipeline takes None or 'int8'")
         self.cfg = cfg
@@ -124,9 +422,10 @@ class VideoDepthPipeline:
         self.model = model.to(self.device).eval().requires_grad_(False)
         self.quant = quant
         self.calib_path = calib_path
+        self.transfer_fp16 = transfer_fp16
+        self.timer: WindowTimer | None = None   # set by collect_timings=True
         self._by_dtype = {torch.float32: self.model}
         self._int8: dict = {}
-
     def model_in(self, dtype: torch.dtype) -> torch.nn.Module:
         """The model with every parameter and buffer cast to ``dtype``
         (built once per dtype, as the JAX pipeline casts its params)."""
@@ -163,53 +462,137 @@ class VideoDepthPipeline:
     def _upload(self, frames: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
 
+
+    def _model_for(self, calib_win, net_hw, dtype) -> torch.nn.Module:
+        if self.quant == "int8":
+            return self.quantized_model(calib_win, net_hw, dtype)
+        return self.model_in(dtype)
+
+    def _geometry(self, src_h: int, src_w: int, input_size: int, fp32: bool):
+        eff = preprocess.effective_input_size(src_h, src_w, input_size)
+        net_hw = preprocess.network_input_hw(src_h, src_w, eff)
+        p = self.cfg.vit.patch_size
+        return net_hw, (net_hw[0] // p, net_hw[1] // p), (torch.float32 if fp32 else torch.bfloat16)
+
+    @torch.no_grad()
+    def _run(self, chunks: Iterator[Chunk], forward, timer: WindowTimer | None):
+        """Runs ``chunks`` through ``forward`` and stitches; yields each
+        chunk's finalised frames, then the last window's tail, as host
+        arrays (fp16 under transfer_fp16). Chunk i + 1 is gathered and
+        uploaded right after chunk i's compute is enqueued; chunk i's frames
+        are read after chunk i + 1's compute is enqueued."""
+        link = HostLink(self.device)
+        span = timer.span if timer is not None else (lambda _: contextlib.nullcontext())
+        sync = timer is not None and self.device.type == "cuda"
+        out_dtype = torch.float16 if self.transfer_fp16 else torch.float32
+
+        def upload(chunk):
+            if chunk is None:
+                return None
+            index = None if chunk.index is None else link.upload([chunk.index], "index")[0]
+            return link.upload(chunk.frames, "frames"), index, chunk.r
+
+        nxt = upload(next(chunks, None))
+        carry, pending = None, []
+        while nxt is not None:
+            frames, index, r = nxt
+            with span("window_forward"):
+                depths = forward(frames, index, r)
+                with span("gather_upload"):
+                    nxt = upload(next(chunks, None))
+                if sync:
+                    torch.cuda.synchronize(self.device)
+            emits = []
+            for d in depths:
+                if carry is None:
+                    carry, emit = stitch.stitch_first(d)
+                else:
+                    carry, emit = stitch.stitch_step(carry, d, metric=self.cfg.metric)
+                emits.append(emit)
+            pending.append(link.download(torch.cat(emits).to(out_dtype)))
+            while len(pending) > 1:
+                yield link.fetch(pending.pop(0))
+        pending.append(link.download(carry[2].to(out_dtype)))
+        for p in pending:
+            yield link.fetch(p)
+
     @torch.no_grad()
     def infer_video_depth(self, frames, target_fps: float = -1,
                           input_size: int = 518, fp32: bool = False,
+                          windows_per_batch: int = 1,
+                          collect_timings: bool = False,
                           cache_keyframe_features: bool = True):
         """frames: [N, H, W, 3] uint8 (or float in [0, 1]).
 
-        Returns (depths [N, H, W] float32, target_fps).
+        Returns (depths [N, H, W] float32, target_fps). ``windows_per_batch``
+        is capped at the number of windows; with collect_timings=True the
+        spans' statistics land in ``self.timer.summary()``.
         """
+        self.timer = WindowTimer() if collect_timings else None
         frames = np.asarray(frames)
         n, src_h, src_w = frames.shape[:3]
-        eff = preprocess.effective_input_size(src_h, src_w, input_size)
-        net_hw = preprocess.network_input_hw(src_h, src_w, eff)
-        dtype = torch.float32 if fp32 else torch.bfloat16
+        net_hw, (ph, pw), dtype = self._geometry(src_h, src_w, input_size, fp32)
         idx = windows.window_indices(n)
-        if self.quant == "int8":
-            model = self.quantized_model(frames[idx[0]], net_hw, dtype)
+        model = self._model_for(frames[idx[0]], net_hw, dtype)
+        c = max(1, min(windows_per_batch, len(idx)))
+        src_hw = (src_h, src_w)
+        if cache_keyframe_features and c == 1:
+            forward = SequentialKeyframeCache(model, ph, pw, net_hw, src_hw, dtype, self.device)
+            chunks = _sequential_chunks(frames, idx)
+        elif cache_keyframe_features:
+            forward = BatchedKeyframeCache(model, ph, pw, net_hw, src_hw, dtype)
+            chunks = _batched_chunks(frames, idx, c)
         else:
-            model = self.model_in(dtype)
-        p = self.cfg.vit.patch_size
-        ph, pw = net_hw[0] // p, net_hw[1] // p
-        kf = torch.tensor(KEYFRAMES, device=self.device)
+            forward = PlainWindows(model, net_hw, src_hw, dtype)
+            chunks = _plain_chunks(frames, idx, c)
+        out = np.empty((FRAME_STEP * len(idx) + OVERLAP, src_h, src_w), np.float32)
+        at = 0
+        for part in self._run(chunks, forward, self.timer):
+            out[at:at + len(part)] = part
+            at += len(part)
+        assert at == len(out), (at, out.shape)
+        return out[:n], target_fps
 
-        def to_source(depth):  # [32, h, w, 1] -> ReLU'd [32, src_h, src_w] fp32
-            depth = resize_bilinear_align_corners(depth.float(), (src_h, src_w))
-            return torch.relu(depth)[..., 0]
+    @torch.no_grad()
+    def infer_video_depth_streaming(self, frame_iter, input_size: int = 518,
+                                    fp32: bool = False, windows_per_batch: int = 1):
+        """Bounded-memory long-video inference from a frame iterator.
 
-        outputs = []
-        carry, feats = None, None
-        for i, row in enumerate(idx):
-            if cache_keyframe_features:
-                rows = row if i == 0 else row[OVERLAP:]
-                x = preprocess.preprocess_frames(self._upload(frames[rows]),
-                                                 net_hw, dtype)
-                new = model.encode(x)
-                if feats is not None:
-                    new = [(torch.cat([pt[kf], nt]), torch.cat([pc[kf], nc]))
-                           for (pt, pc), (nt, nc) in zip(feats, new)]
-                feats = new
-                depth = to_source(model.head(feats, ph, pw, 1, INFER_LEN))
-            else:
-                x = preprocess.preprocess_frames(self._upload(frames[row]),
-                                                 net_hw, dtype)
-                depth = to_source(model(x[None])[0][..., None])
-            if carry is None:
-                carry, emit = stitch.stitch_first(depth)
-            else:
-                carry, emit = stitch.stitch_step(carry, depth, metric=self.cfg.metric)
-            outputs.append(emit.cpu().numpy())
-        outputs.append(carry[2].cpu().numpy())
-        return np.concatenate(outputs, axis=0)[:n].astype(np.float32), target_fps
+        frame_iter yields [H, W, 3] uint8 frames
+        (``utils/video_io.py::stream_video_frames``). Yields finalised depth
+        chunks [n_i, H, W] float32 whose concatenation is bit-identical to
+        ``infer_video_depth`` with the same ``windows_per_batch`` on the same
+        frames. C = 1 holds one window of frames; C > 1 one chunk's new
+        frames plus the last one read, the keyframe features staying on
+        the device.
+        """
+        c = max(1, windows_per_batch)
+        it = iter(frame_iter)
+        first = []
+        for f in it:
+            first.append(np.asarray(f))
+            if len(first) == INFER_LEN:
+                break
+        if not first:
+            return
+        src_hw = first[0].shape[:2]
+        net_hw, (ph, pw), dtype = self._geometry(*src_hw, input_size, fp32)
+        state = _Stream(n=len(first), ended=len(first) < INFER_LEN)
+        window0 = np.stack(first + [first[-1]] * (INFER_LEN - len(first)))
+        model = self._model_for(window0, net_hw, dtype)
+        del window0
+        if c == 1:
+            forward = SequentialKeyframeCache(model, ph, pw, net_hw, src_hw, dtype, self.device)
+            chunks = _stream_sequential(it, first, state)
+        else:
+            forward = BatchedKeyframeCache(model, ph, pw, net_hw, src_hw, dtype)
+            chunks = _stream_batched(it, first, c, state)
+        del first
+        emitted = 0
+        for part in self._run(chunks, forward, None):
+            # Until the stream ends nothing emitted lies past it; after, n is final.
+            if state.ended:
+                part = part[: max(0, state.n - emitted)]
+            emitted += len(part)
+            if len(part):
+                yield np.array(part, dtype=np.float32)

@@ -4,6 +4,8 @@ normalisation. The port of the JAX package's
 ``pipeline/preprocess.py``."""
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -42,6 +44,13 @@ def preprocess_frames(frames: torch.Tensor, out_hw: tuple[int, int],
     if frames.dtype == torch.uint8:
         x = x / 255.0
     x = resize_bicubic_half_pixel(x, out_hw)
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
+    mean, std = _imagenet(x.device)
     return ((x - mean) / std).to(dtype)
+
+
+@functools.lru_cache(maxsize=8)
+def _imagenet(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The normalisation constants on ``device``, copied there once (a copy
+    per call would wait for the device's queue)."""
+    return (torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
+            torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device))
