@@ -91,3 +91,84 @@ def test_bench_kernel_ab_probes_report_t3_against_its_bound(monkeypatch, capsys)
         assert abs(rows[name]["bound_ms"] - 0.0328) < 1e-4
         assert abs(rows[name]["bytes_ms"] - 0.0275) < 1e-4
     assert "two 4-step chains" in capsys.readouterr().out
+
+
+def test_drift_split_exits_2_without_a_card(monkeypatch, capsys):
+    """tools/drift_split.py needs a card: without one it runs nothing."""
+    import torch
+    from video_depth_anything_torch.tools import drift_split
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert drift_split.main(["--encoder", "vitg"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_drift_limits_exits_2_without_a_card(monkeypatch, capsys):
+    """tools/drift_limits.py needs a card: without one it runs nothing."""
+    import torch
+    from video_depth_anything_torch.tools import drift_limits
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert drift_limits.main(["--encoder", "vitg", "--seeds", "0"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_drift_limits_plants_one_block_swap(tmp_path):
+    """The planted fault swaps one block's fc1 / fc2 absmax and nothing
+    else; the faulted file still passes the pipeline's geometry check."""
+    import numpy as np
+    import torch
+    from video_depth_anything_torch.pipeline import infer
+    from video_depth_anything_torch.tools.drift_limits import swap_slots
+
+    stats = {"encoder": {k: np.arange(4, dtype=np.float32) + 10 * j
+                         for j, k in enumerate(("qkv", "proj", "fc1", "fc2"))},
+             "motion": {"0": {"proj_in": np.float32(3.0)}}}
+    src, dst = str(tmp_path / "a.int8calib.npz"), str(tmp_path / "b.int8calib.npz")
+    infer._save_calib(src, stats, (28, 28), torch.float32)
+    swap_slots(src, dst, 2)
+    got = infer._load_calib(dst, (28, 28), torch.float32)
+    enc = stats["encoder"]
+    np.testing.assert_array_equal(got["encoder"]["fc1"], [20, 21, 32, 23])
+    np.testing.assert_array_equal(got["encoder"]["fc2"], [30, 31, 22, 33])
+    for k in ("qkv", "proj"):
+        np.testing.assert_array_equal(got["encoder"][k], enc[k])
+    assert got["motion"]["0"]["proj_in"] == 3.0
+
+
+def test_block_rel_l2_sees_a_planted_fault_in_its_block(tmp_path):
+    """``block_rel_l2`` (chip_smoke (k)'s full-depth int8 check): a sound
+    int8 vits holds every block near int8's own error; a side file with one
+    block's fc1 / fc2 absmax swapped, or its fc2 absmax halved, lifts that
+    block alone past twice the largest sound block."""
+    import numpy as np
+    import torch
+    from video_depth_anything_torch.config import get_model_config
+    from video_depth_anything_torch.models import build_model
+    from video_depth_anything_torch.pipeline import VideoDepthPipeline, preprocess
+    from video_depth_anything_torch.tools.drift_limits import (
+        block_rel_l2, scale_slot, swap_slots)
+    from video_depth_anything_torch.utils.precision import synthetic_video
+
+    torch.set_num_threads(2)
+    cfg = get_model_config("vits")
+    model = build_model(cfg, seed=0)
+    frames = synthetic_video(n=8, hw=(42, 42), seed=1)
+    net_hw = preprocess.network_input_hw(42, 42, preprocess.effective_input_size(42, 42, 28))
+    bf16 = VideoDepthPipeline(cfg, model, device="cpu").model_in(torch.bfloat16)
+
+    def errors(side):
+        q = VideoDepthPipeline(cfg, model, device="cpu", quant="int8", calib_path=side)
+        return block_rel_l2(bf16, q.quantized_model(frames, net_hw, torch.bfloat16),
+                            frames, net_hw)
+
+    side = str(tmp_path / "s.int8calib.npz")
+    sound = errors(side)
+    assert len(sound) == 12 and all(0 < e < 0.05 for e in sound), sound
+    for i, plant in enumerate((lambda a, b: swap_slots(a, b, 5),
+                               lambda a, b: scale_slot(a, b, 5, 0.5))):
+        bad = str(tmp_path / f"bad{i}.int8calib.npz")
+        plant(side, bad)
+        got = errors(bad)
+        assert got[5] > 2 * max(sound), (i, got)
+        assert got[:5] + got[6:] == sound[:5] + sound[6:], (i, got)

@@ -166,6 +166,125 @@ def test_cli_streaming_windows_per_batch_and_fp16_transport(tmp_path):
     assert not list(tmp_path.rglob("*.spool.f32"))
 
 
+_SERVING_RUNS = """
+from video_depth_anything_torch import depth_to_pointcloud, metric_run, run
+base = ["--encoder", "vits", "--input_video", {video!r}, "--input_size", "28",
+        "--max_res", "64", "--device", "cpu"]
+rnd = base + ["--random_init"]
+run.main(rnd + ["--output_dir", {out!r} + "/exr", "--save_npz", "--save_exr"])
+run.main(rnd + ["--output_dir", {out!r} + "/exr_stream", "--save_npz", "--save_exr", "--streaming"])
+metric_run.main(rnd + ["--output_dir", {out!r} + "/metric", "--save_npz", "--save_exr", "--fp32"])
+depth_to_pointcloud.main(rnd + ["--output_dir", {out!r} + "/ply", "--fp32"])
+print("DONE random", flush=True)
+"""
+
+
+def test_cli_save_exr_metric_and_pointclouds(tmp_path):
+    """--save_exr frames read back equal to the npz (batch and streaming);
+    metric_run writes its depths and EXR frames; depth_to_pointcloud one
+    PLY per frame, each the unprojected metric depth of the frame."""
+    from video_depth_anything_torch.utils.exr import read_exr_z
+    from video_depth_anything_torch.utils.pointcloud import read_ply, unproject_depth
+
+    video = _write_clip(tmp_path)
+    res = subprocess.run([sys.executable, "-c", _SERVING_RUNS.format(video=video, out=str(tmp_path))],
+                         capture_output=True, text=True, cwd=ROOT, env=ENV, timeout=600)
+    assert res.returncode == 0, f"CLI failed:\n{res.stdout}\n{res.stderr}"
+    assert "DONE random" in res.stdout
+    for name in ("exr", "exr_stream", "metric"):
+        d = np.load(tmp_path / name / "clip_depths.npz")["depths"]
+        assert d.shape == (12, 48, 64) and np.isfinite(d).all()
+        frames = sorted((tmp_path / name / "clip_depths_exr").glob("frame_*.exr"))
+        assert [f.name for f in frames] == [f"frame_{i:05d}.exr" for i in range(12)]
+        for i, f in enumerate(frames):
+            np.testing.assert_array_equal(read_exr_z(str(f)), d[i])
+    metric = np.load(tmp_path / "metric" / "clip_depths.npz")["depths"]
+    plys = sorted((tmp_path / "ply").glob("point*.ply"))
+    assert [p.name for p in plys] == [f"point{i:04d}.ply" for i in range(12)]
+    pts, cols = read_ply(str(plys[3]))
+    want, _ = unproject_depth(metric[3], 470.4, 470.4)
+    np.testing.assert_array_equal(pts, want.astype(np.float32))
+    assert cols.shape == (48 * 64, 3)
+
+
+_NPZ_CHECKPOINT = """
+import jax, numpy as np
+from video_depth_anything_tpu.config import get_model_config as j_config
+from video_depth_anything_tpu.models.video_depth import init_params
+from video_depth_anything_tpu.utils.params_io import save_params
+save_params({ckpt!r}, init_params(jax.random.PRNGKey(0), j_config("vits")))
+"""
+
+
+def test_cli_npz_checkpoint(tmp_path):
+    """--checkpoint x.npz (the JAX package's save_params layout) loads and
+    runs, and with --int8 its side file is <x.npz>.int8calib.npz."""
+    video = _write_clip(tmp_path)
+    ckpt = str(tmp_path / "video_depth_anything_vits.npz")
+    env = {**ENV, "JAX_PLATFORMS": "cpu"}
+    res = subprocess.run([sys.executable, "-c", _NPZ_CHECKPOINT.format(ckpt=ckpt)],
+                         capture_output=True, text=True, cwd=ROOT, env=env, timeout=600)
+    assert res.returncode == 0, res.stderr
+    base = [sys.executable, "-m", "video_depth_anything_torch.run", "--encoder", "vits",
+            "--input_video", video, "--input_size", "28", "--max_res", "64", "--device", "cpu",
+            "--save_npz", "--checkpoint", ckpt]
+    for name, extra in (("fp32", ["--fp32"]), ("int8", ["--int8"])):
+        res = subprocess.run(base + ["--output_dir", str(tmp_path / name)] + extra,
+                             capture_output=True, text=True, cwd=ROOT, env=ENV, timeout=600)
+        assert res.returncode == 0, f"CLI failed:\n{res.stdout}\n{res.stderr}"
+        assert f"loading checkpoint: {ckpt}" in res.stdout
+        d = np.load(tmp_path / name / "clip_depths.npz")["depths"]
+        assert d.shape == (12, 48, 64) and np.isfinite(d).all()
+    assert os.path.exists(ckpt + ".int8calib.npz")
+
+
+def test_cli_accepts_vitg_and_the_new_flags():
+    """Parsing only: a 1.1 B model is too slow for the CPU here."""
+    from video_depth_anything_torch import depth_to_pointcloud, run
+
+    args = run.parse_args(["--encoder", "vitg", "--save_exr", "--decode_backend", "ffmpeg",
+                           "--checkpoint", "x.npz"])
+    assert (args.encoder, args.save_exr, args.decode_backend, args.checkpoint) == (
+        "vitg", True, "ffmpeg", "x.npz")
+    assert run.parse_args([]).decode_backend is None and run.parse_args([]).device == "cuda"
+    with pytest.raises(SystemExit):
+        run.parse_args(["--decode_backend", "decord"])
+    p = depth_to_pointcloud.parse_args(["--encoder", "vitg", "--focal-length-x", "500"])
+    assert (p.encoder, p.focal_length_x, p.focal_length_y, p.device) == ("vitg", 500.0, 470.4, "cuda")
+
+
+@pytest.mark.parametrize("entry", ["run", "depth_to_pointcloud", "bench"])
+def test_cli_default_paths_lie_inside_the_checkout(entry):
+    """The entry points run as ``python -m`` from the repo root: no default
+    path may reach out of it."""
+    import importlib
+
+    args = vars(importlib.import_module(f"video_depth_anything_torch.{entry}").parse_args([]))
+    paths = {k: v for k, v in args.items() if isinstance(v, str) and "/" in v}
+    assert all(not v.startswith("..") for v in paths.values()), paths
+    if "input_video" in args:
+        assert args["input_video"] == "./assets/example_videos/davis_rollercoaster.mp4"
+
+
+def test_cli_without_a_card_exits_instead_of_moving_to_the_cpu(tmp_path):
+    """The default device is the card: where none answers, the probe ends
+    the run with a message (no CPU fallback); VDA_DEVICE_TIMEOUT=0 skips
+    the probe, and the pipeline itself then refuses."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the probe passes")
+    cmd = [sys.executable, "-m", "video_depth_anything_torch.run", "--encoder", "vits",
+           "--random_init", "--input_video", str(tmp_path / "none.mp4"),
+           "--output_dir", str(tmp_path / "out")]
+    res = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                         env={**ENV, "VDA_DEVICE_TIMEOUT": "60"}, timeout=300)
+    assert res.returncode == 1 and "CUDA device unavailable" in res.stderr, res.stderr
+    assert not (tmp_path / "out").exists()
+    res = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                         env={**ENV, "VDA_DEVICE_TIMEOUT": "0"}, timeout=300)
+    assert res.returncode != 0 and "CUDA" in res.stderr
+
+
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import video_depth_anything_torch as pkg
@@ -176,7 +295,9 @@ bad = sorted(m for m in sys.modules
 print("LOADED", len([m for m in sys.modules if m.startswith(pkg.__name__)]))
 print("BAD", bad)
 print("HAS", all(pkg.__name__ + "." + m in sys.modules for m in (
-    "bench", "run", "pipeline.infer", "utils.profiling", "utils.video_io")))
+    "bench", "run", "pipeline.infer", "utils.profiling", "utils.video_io", "metric_run",
+    "depth_to_pointcloud", "utils.exr", "utils.pointcloud", "utils.params_io",
+    "utils.platform_env")))
 """
 
 
@@ -187,7 +308,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
     assert "HAS True" in res.stdout, res.stdout   # the long-video path's modules too
-    assert int(res.stdout.split("LOADED")[1].split()[0]) >= 28, res.stdout
+    assert int(res.stdout.split("LOADED")[1].split()[0]) >= 50, res.stdout
 
 
 def test_no_port_file_names_jax():

@@ -585,3 +585,82 @@ def test_vitl_four_windows_per_batch_at_518(card):
     print(f"vitl 518x518, 100 frames, windows_per_batch=4: peak {peak:.2f} GiB")
     rep = precision_drift_report(got, seq)
     assert rep["max_err_frac"] < MAX_ERR_FRAC and rep["mean_err_frac"] < MEAN_ERR_FRAC, rep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1370, 1371])
+@pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4), (torch.bfloat16, 4e-3)])
+def test_k1_and_k3_at_vitg_width(card, s, dt, tol):
+    """K1 on the column views of vitg's fused [32, S, 4608] qkv (24 heads of
+    64: a row stride the TMA maps had not seen), and K3 at 24 heads, against
+    their plain versions. At S 1370 (37^2 patches + cls) the outputs are
+    averages over 1370 keys, about ten times smaller than at this file's
+    short sequences: bf16 is held to chip_smoke.py's 4e-3."""
+    b, h = 32, 24
+    c = h * 64
+    qkv = torch.randn(b, s, 3 * c, device="cuda", generator=card).to(dt)
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    kernels.reset_launch_counts()
+    got = k1.spatial_attention(q, k, v, num_heads=h, scale=0.125)
+    ref = k1.spatial_attention_plain(q, k, v, num_heads=h, scale=0.125)
+    assert _bf16_err_ok(got, ref, tol)
+    del got, ref
+    scales = torch.tensor([1.6 / 127 / 8, 1.6 / 127], device="cuda")
+    q8, k8 = (torch.randint(-127, 128, (b, s, c), device="cuda", generator=card,
+                            dtype=torch.int8) for _ in range(2))
+    got = k3.spatial_attention_qk8(q8, k8, v, scales, num_heads=h)
+    ref = k3.spatial_attention_qk8_plain(q8, k8, v, scales, num_heads=h)
+    assert _bf16_err_ok(got, ref, tol)
+    assert kernels.launch_counts() == counts(spatial_attention=1, spatial_attention_qk8=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,c", [(37 * 37, 1536), (19 * 19, 1536), (37 * 37, 384), (74 * 74, 384)])
+def test_k2_at_vitg_motion_module_shapes(card, p, c):
+    """K2 at vitg's four motion modules at 518^2 (dh 192 and 48), T 32,
+    bf16 (2e-2) and fp32 (1e-4)."""
+    kernels.reset_launch_counts()
+    dh = c // 8
+    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        q, k, v = (torch.randn(p, 32, c, device="cuda", generator=card).to(dt) for _ in range(3))
+        got = k2.temporal_attention(q, k, v, num_heads=8, scale=dh ** -0.5)
+        ref = k2.temporal_attention_plain(q, k, v, num_heads=8, scale=dh ** -0.5)
+        assert _bf16_err_ok(got, ref, tol)
+    assert kernels.launch_counts() == counts(temporal_attention=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 148, 148, 384), (32, 74, 74, 384), (32, 37, 37, 384),
+                                   (32, 19, 19, 384)])
+def test_k6_at_vitg_width(card, shape):
+    """K6 at C 384, the kernel's widest (its shared memory at its largest),
+    on vitg's four RefineNet shapes in bf16, 2^-7 of max |y|."""
+    c = shape[3]
+    w1, w2 = (k6.kernel_weight(0.04 * torch.randn(c, c, 3, 3, device="cuda", generator=card),
+                               torch.bfloat16) for _ in range(2))
+    b1, b2 = (0.1 * torch.randn(c, device="cuda", generator=card) for _ in range(2))
+    x = torch.randn(shape, device="cuda", generator=card).to(torch.bfloat16)
+    kernels.reset_launch_counts()
+    got = k6.fused_rcu(x, w1, b1, w2, b2)
+    ref = k6.fused_rcu_plain(x, w1, b1, w2, b2)
+    assert kernels.launch_counts() == counts(fused_rcu=1)
+    assert _bf16_err_ok(got, ref, 2 ** -7 * ref.float().abs().max().item())
+
+
+@pytest.mark.cuda
+def test_vitg_window_peak_memory(card):
+    """One vitg window (22 frames at 518 x 518, one window of 32 rows, bf16)
+    through the pipeline: 40 K1 launches (one encode), 8 K2; finite depths;
+    its peak device memory, with the fp32 weights (5.1 GiB with the head)
+    and their bf16 copy resident, is printed."""
+    cfg = get_model_config("vitg")
+    pipe = VideoDepthPipeline(cfg, build_model(cfg, seed=0, device="cuda"))
+    frames = synthetic_video(n=22, hw=(518, 518), seed=12)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    got, _ = pipe.infer_video_depth(frames)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"vitg 518x518, one window, bf16: peak {peak:.2f} GiB")
+    assert kernels.launch_counts() == counts(spatial_attention=40, temporal_attention=8)
+    assert got.shape == (22, 518, 518) and np.isfinite(got).all()
+    assert peak < 40

@@ -131,8 +131,15 @@ def test_bf16_forward_within_drift_budget(forward_pair):
 
 
 def test_unported_options_raise():
+    """Register tokens are all that still raises (the JAX package runs none
+    either); use_bn, use_clstoken, pe="rope" and vitg's SwiGLU construct
+    (tests/test_torch_variants.py, tests/test_torch_vitg.py)."""
+    regs = dataclasses.replace(t_config("vits").vit, num_register_tokens=4)
+    with pytest.raises(NotImplementedError, match="register tokens"):
+        VideoDepthAnything(dataclasses.replace(t_config("vits"), vit_override=regs))
     for over in (dict(use_bn=True), dict(use_clstoken=True), dict(pe="rope")):
-        with pytest.raises(NotImplementedError):
-            VideoDepthAnything(dataclasses.replace(t_config("vits"), **over))
-    with pytest.raises(NotImplementedError):
+        VideoDepthAnything(dataclasses.replace(t_config("vits"), **over))
+    with torch.device("meta"):
         VideoDepthAnything(t_config("vitg"))
+    with pytest.raises(ValueError, match="pe"):
+        VideoDepthAnything(dataclasses.replace(t_config("vits"), pe="alibi"))

@@ -15,6 +15,9 @@ it:
   - conv ``w`` HWIO                 -> OIHW (``resize_layers.{0,1}``: HWOI -> IOHW,
                                        the same permutation)
   - norm ``scale`` / ``bias``       -> ``weight`` / ``bias``
+  - BatchNorm ``mean`` / ``var``    -> ``running_mean`` / ``running_var``,
+                                       and a zero ``num_batches_tracked``
+  - the RoPE table ``_freqs_cis``   -> dropped (a buffer the port builds)
 """
 from __future__ import annotations
 
@@ -32,6 +35,11 @@ def _emit(sd: dict, key: str, leaf: str, v: np.ndarray) -> None:
         sd[base + "bias"] = v
     elif leaf == "scale":
         sd[base + "weight"] = v
+    elif leaf == "mean":   # BatchNorm running statistics (use_bn heads)
+        sd[base + "running_mean"] = v
+        sd[base + "num_batches_tracked"] = np.zeros((), np.int64)
+    elif leaf == "var":
+        sd[base + "running_var"] = v
     else:  # norm bias, LayerScale gamma, APE pe, cls_token, pos_embed, ...
         sd[key] = v
 
@@ -41,6 +49,8 @@ def _walk(sd: dict, node: Mapping, prefix: str) -> None:
         key = f"{prefix}.{k}" if prefix else str(k)
         if k in ("qs", "w_i8", "ws"):
             raise ValueError(f"cannot convert int8-quantized leaf {key}")
+        if k == "_freqs_cis":   # the RoPE table: no checkpoint tensor; the port builds it
+            continue
         if isinstance(v, Mapping):
             _walk(sd, v, key)
         else:
@@ -97,9 +107,15 @@ def model_from_params(params: Mapping, cfg) -> torch.nn.Module:
 
 
 def load_checkpoint(model: torch.nn.Module, path: str) -> torch.nn.Module:
-    """Load a reference ``.pth`` state_dict into ``model`` with strict=True."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if "model" in sd and isinstance(sd["model"], dict):
-        sd = sd["model"]
+    """Load a checkpoint into ``model`` with strict=True: a reference
+    ``.pth`` state_dict, or the JAX package's ``.npz`` (its parameter tree
+    flattened to '/'-joined keys, ``utils/params_io.py``)."""
+    if path.endswith(".npz"):
+        from .utils.params_io import load_params
+        sd = state_dict_from_params(load_params(path), model.cfg.vit.depth)
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        if "model" in sd and isinstance(sd["model"], dict):
+            sd = sd["model"]
     model.load_state_dict(sd, strict=True)
     return model

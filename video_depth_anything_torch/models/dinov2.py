@@ -1,18 +1,19 @@
 """DINOv2 ViT encoder, NHWC in, ``[N, S, D]`` tokens out.
 
 The port of the JAX package's ``models/dinov2.py``: patch 14,
-LayerScale, exact-GELU MLP, no registers, pre-norm blocks with LayerNorm
-eps 1e-6, and the +0.1 pos-embed interpolation offset. Attribute paths are
-the original checkpoint's keys (``blocks.{i}.attn.qkv`` is one fused
-Linear). Spatial attention runs kernel K1
-(``kernels/spatial_attention.py``) on the fused projection's column views;
-a head dim other than 64 goes on from there to K4, as in the JAX package.
+LayerScale, exact-GELU MLP (vitg: the fused SwiGLU FFN), no registers,
+pre-norm blocks with LayerNorm eps 1e-6, and the +0.1 pos-embed
+interpolation offset. Attribute paths are the original checkpoint's keys
+(``blocks.{i}.attn.qkv`` is one fused Linear). Spatial attention runs
+kernel K1 (``kernels/spatial_attention.py``) on the fused projection's
+column views; a head dim other than 64 goes on from there to K4, as in
+the JAX package.
 
 int8 mode (``ops/quant.py::quantize_encoder``): the fused qkv, proj, fc1
-and fc2 become ``QLinear`` sites, and q and k are re-quantized for kernel
-K3 (``kernels/spatial_attention_qk8.py``), which reads v in place. A
-``stats`` dict passed down the forward collects the calibration absmaxes
-(``calibrate``).
+and fc2 (SwiGLU: w12 and w3) become ``QLinear`` sites, and q and k are
+re-quantized for kernel K3 (``kernels/spatial_attention_qk8.py``), which
+reads v in place. A ``stats`` dict passed down the forward collects the
+calibration absmaxes (``calibrate``).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import math
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..config import ViTConfig
 from ..kernels.spatial_attention import spatial_attention
@@ -100,6 +102,30 @@ class Mlp(nn.Module):
         return quant.linear_maybe_q(self.fc2, h)
 
 
+def swiglu_hidden(dim: int, mlp_ratio: float) -> int:
+    """The fused SwiGLU's hidden size: 2/3 of the MLP's, rounded up to a
+    multiple of 8 (4096 for vitg)."""
+    return (int(int(dim * mlp_ratio) * 2 / 3) + 7) // 8 * 8
+
+
+class SwiGLUFFNFused(nn.Module):
+    """vitg's FFN: w12 -> split -> silu(x1) * x2 -> w3, as the JAX package's
+    ``_ffn``. The split, silu and the product each round in the activation
+    dtype."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.w12 = nn.Linear(dim, 2 * hidden)
+        self.w3 = nn.Linear(hidden, dim)
+
+    def forward(self, x: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
+        x1, x2 = quant.linear_maybe_q(self.w12, x).chunk(2, dim=-1)
+        h = F.silu(x1) * x2
+        if stats is not None:   # the w3 input's absmax, in the "fc2" slot
+            stats["fc2"] = quant.amax(h)
+        return quant.linear_maybe_q(self.w3, h)
+
+
 class LayerScale(nn.Module):
     def __init__(self, dim: int, init_values: float):
         super().__init__()
@@ -116,7 +142,12 @@ class Block(nn.Module):
         self.attn = Attention(d, cfg.num_heads)
         self.ls1 = LayerScale(d, cfg.init_values)
         self.norm2 = nn.LayerNorm(d, eps=1e-6)
-        self.mlp = Mlp(d, int(d * cfg.mlp_ratio))
+        if cfg.ffn_layer == "mlp":
+            self.mlp = Mlp(d, int(d * cfg.mlp_ratio))
+        elif cfg.ffn_layer == "swiglufused":
+            self.mlp = SwiGLUFFNFused(d, swiglu_hidden(d, cfg.mlp_ratio))
+        else:
+            raise ValueError(f"unknown ffn_layer {cfg.ffn_layer!r}")
         self.ls2 = LayerScale(d, cfg.init_values)
 
     def forward(self, x: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
@@ -127,7 +158,7 @@ class Block(nn.Module):
             stats["qkv"] = quant.amax(y)
         x = x + self.ls1.gamma.to(x.dtype) * self.attn(y, stats)
         y = vnn.layer_norm(x, self.norm2.weight, self.norm2.bias, 1e-6)
-        if stats is not None:
+        if stats is not None:   # the FFN's input (fc1, or SwiGLU's w12)
             stats["fc1"] = quant.amax(y)
         return x + self.ls2.gamma.to(x.dtype) * self.mlp(y, stats)
 
@@ -135,9 +166,6 @@ class Block(nn.Module):
 class DinoVisionTransformer(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
-        if cfg.ffn_layer != "mlp":
-            raise NotImplementedError(
-                f"ffn_layer={cfg.ffn_layer!r} (vitg's fused SwiGLU) is not ported yet")
         if cfg.num_register_tokens:
             raise NotImplementedError("register tokens are not ported")
         self.cfg = cfg

@@ -1,7 +1,8 @@
 """DPT spatial decoder pieces, NHWC.
 
 The port of the JAX package's ``models/dpt.py``: residual conv
-units, RefineNet fusion blocks with the 1x1 out_conv run before the 2x
+units (with eval-mode BatchNorm after each conv for ``use_bn`` heads),
+RefineNet fusion blocks with the 1x1 out_conv run before the 2x
 upsample (a pointwise affine map commutes exactly with align-corners
 bilinear, whose weights sum to 1), the 3x3 "scratch" convs, and the output
 head with its fp32 island (fp32 input) or bf16 mixed island (bf16 input).
@@ -10,7 +11,8 @@ All upsampling is bilinear ``align_corners=True``.
 ``use_kernel=True`` on a residual conv unit or fusion block is the JAX
 package's ``use_pallas`` opt-in (``models/dpt.py::residual_conv_unit``):
 where ``rcu_supported`` holds (C % 128 == 0: vitb, vitl, vitg) the unit
-runs kernel K6 (``kernels/fused_rcu.py``), otherwise the two-conv path.
+runs kernel K6 (``kernels/fused_rcu.py``), otherwise the two-conv path
+(a BatchNorm unit always takes it: the gate excludes BN, as JAX's does).
 The head never sets it, as the JAX head does not.
 """
 from __future__ import annotations
@@ -27,13 +29,29 @@ def _conv(features_in: int, features_out: int, k: int, bias: bool = True):
     return nn.Conv2d(features_in, features_out, k, padding=k // 2, bias=bias)
 
 
-class ResidualConvUnit(nn.Module):
-    """relu -> conv3x3 -> relu -> conv3x3, plus the skip (no BatchNorm)."""
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, eps: float = 1e-5) -> torch.Tensor:
+    """Inference-mode BatchNorm over NHWC channels with the running
+    statistics, in the JAX package's arithmetic (``models/dpt.py::
+    _batch_norm``): the fp32 per-channel scale and bias rounded to x's
+    dtype, then x * scale + bias."""
+    inv = torch.rsqrt(bn.running_var.float() + eps)
+    w = bn.weight.float()
+    scale = (w * inv).to(x.dtype)
+    bias = (bn.bias.float() - bn.running_mean.float() * w * inv).to(x.dtype)
+    return x * scale + bias
 
-    def __init__(self, features: int):
+
+class ResidualConvUnit(nn.Module):
+    """relu -> conv3x3 [-> BN] -> relu -> conv3x3 [-> BN], plus the skip."""
+
+    def __init__(self, features: int, use_bn: bool = False):
         super().__init__()
+        self.use_bn = use_bn
         self.conv1 = _conv(features, features, 3)
         self.conv2 = _conv(features, features, 3)
+        if use_bn:
+            self.bn1 = nn.BatchNorm2d(features)
+            self.bn2 = nn.BatchNorm2d(features)
         self._kernel_operands = None   # (key, w1, b1, w2, b2) for K6
 
     def kernel_operands(self, dtype: torch.dtype):
@@ -48,19 +66,23 @@ class ResidualConvUnit(nn.Module):
         return self._kernel_operands[1:]
 
     def forward(self, x: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
-        if use_kernel and rcu_supported(x):
+        if use_kernel and rcu_supported(x, self.use_bn):
             return fused_rcu(x.contiguous(), *self.kernel_operands(x.dtype))
         y = vnn.conv2d(torch.relu(x), self.conv1.weight, self.conv1.bias, padding=1)
+        if self.use_bn:
+            y = batch_norm(y, self.bn1)
         y = vnn.conv2d(torch.relu(y), self.conv2.weight, self.conv2.bias, padding=1)
+        if self.use_bn:
+            y = batch_norm(y, self.bn2)
         return y + x
 
 
 class FeatureFusionBlock(nn.Module):
-    def __init__(self, features: int):
+    def __init__(self, features: int, use_bn: bool = False):
         super().__init__()
         self.out_conv = _conv(features, features, 1)
-        self.resConfUnit1 = ResidualConvUnit(features)
-        self.resConfUnit2 = ResidualConvUnit(features)
+        self.resConfUnit1 = ResidualConvUnit(features, use_bn)
+        self.resConfUnit2 = ResidualConvUnit(features, use_bn)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor | None = None,
                 size: tuple[int, int] | None = None,
@@ -78,12 +100,12 @@ class FeatureFusionBlock(nn.Module):
 
 
 class Scratch(nn.Module):
-    def __init__(self, out_channels, features: int):
+    def __init__(self, out_channels, features: int, use_bn: bool = False):
         super().__init__()
         for i, c in enumerate(out_channels):
             setattr(self, f"layer{i + 1}_rn", _conv(c, features, 3, bias=False))
         for i in (1, 2, 3, 4):
-            setattr(self, f"refinenet{i}", FeatureFusionBlock(features))
+            setattr(self, f"refinenet{i}", FeatureFusionBlock(features, use_bn))
         self.output_conv1 = _conv(features, features // 2, 3)
         self.output_conv2 = nn.Sequential(_conv(features // 2, 32, 3), nn.ReLU(),
                                           _conv(32, 1, 1))

@@ -2,8 +2,8 @@
 
 The port of the JAX package's ``models/motion.py``: GroupNorm(32,
 eps 1e-6) -> proj_in -> (2 x [LayerNorm eps 1e-5 -> temporal attention
-with the sinusoidal APE] + GEGLU feed-forward) -> zero-initialised
-proj_out + residual. Maps are NHWC ``[B*T, H, W, C]``; the transformer
+with the sinusoidal APE, or RoPE on q and k] + GEGLU feed-forward) ->
+zero-initialised proj_out + residual. Maps are NHWC ``[B*T, H, W, C]``; the transformer
 blocks run in the attention-native ``[B*H*W, T, C]`` layout (one transpose
 in, one out), and the attention itself is kernel K2
 (``kernels/temporal_attention.py``).
@@ -37,6 +37,48 @@ def sinusoidal_pe(d_model: int, max_len: int) -> np.ndarray:
     return pe.astype(np.float32)
 
 
+def rope_freqs_cis(dim: int, end: int, theta: float = 10000.0) -> np.ndarray:
+    """RoPE table [end, dim // 2] complex64: position t times frequency
+    theta^(-2i / dim), as cos + i sin."""
+    freqs = 1.0 / (theta ** (np.arange(0, dim, 2)[: dim // 2] / dim))
+    angles = np.outer(np.arange(end, dtype=np.float64), freqs)
+    return (np.cos(angles) + 1j * np.sin(angles)).astype(np.complex64)
+
+
+class RotaryEmbedding(nn.Module):
+    """The RoPE table as an fp32 [max_len, dim // 2, 2] (cos, sin) buffer.
+
+    Not a checkpoint tensor (non-persistent), and fp32 whatever dtype the
+    model is cast to: the JAX package keeps its complex64 table when it
+    casts the parameters, so a cast rebuilds the table instead of rounding
+    it."""
+
+    def __init__(self, dim: int, max_len: int):
+        super().__init__()
+        self.dim, self.max_len = dim, max_len
+        self.register_buffer("freqs", self._table(None), persistent=False)
+
+    def _table(self, device) -> torch.Tensor:
+        f = rope_freqs_cis(self.dim, self.max_len)
+        return torch.tensor(np.stack([f.real, f.imag], axis=-1), device=device)
+
+    def _apply(self, fn, recurse=True):
+        super()._apply(fn, recurse)
+        if self.freqs.dtype != torch.float32:
+            self.freqs = self._table(self.freqs.device)
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Rotate the channel pairs of x [P, T, C] by position, in fp32
+        (the complex product (a + ib)(cos + i sin)); cast back to x's dtype."""
+        p, t, c = x.shape
+        xf = x.float().reshape(p, t, c // 2, 2)
+        a, b = xf[..., 0], xf[..., 1]
+        cos, sin = self.freqs[:t, :, 0], self.freqs[:t, :, 1]
+        out = torch.stack([a * cos - b * sin, a * sin + b * cos], dim=-1)
+        return out.reshape(p, t, c).to(x.dtype)
+
+
 class PositionalEncoding(nn.Module):
     def __init__(self, d_model: int, max_len: int):
         super().__init__()
@@ -45,25 +87,34 @@ class PositionalEncoding(nn.Module):
 
 
 class TemporalAttention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, max_len: int):
+    def __init__(self, dim: int, num_heads: int, max_len: int, pe: str = "ape"):
         super().__init__()
         self.num_heads = num_heads
         self.to_q = nn.Linear(dim, dim, bias=False)
         self.to_k = nn.Linear(dim, dim, bias=False)
         self.to_v = nn.Linear(dim, dim, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(dim, dim), nn.Dropout(0.0)])
-        self.pos_encoder = PositionalEncoding(dim, max_len)
+        if pe == "ape":
+            self.pos_encoder = PositionalEncoding(dim, max_len)
+        elif pe == "rope":
+            self.rope = RotaryEmbedding(dim, max_len)
+        else:
+            raise ValueError(f"unknown temporal pe {pe!r}")
+        self.pe = pe
 
     def forward(self, x: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
         """x: [P, T, C] -> [P, T, C]."""
         t, c = x.shape[1], x.shape[2]
-        x = x + self.pos_encoder.pe[:, :t].to(x.dtype)
+        if self.pe == "ape":
+            x = x + self.pos_encoder.pe[:, :t].to(x.dtype)
         if stats is not None:
             stats["qkv"] = quant.amax(x)
         x_i8 = None
         if isinstance(self.to_q, quant.QLinear):
             x_i8 = quant.quant_act(x, self.to_q.amax)
         q, k, v = (quant.linear_maybe_q(m, x, x_i8) for m in (self.to_q, self.to_k, self.to_v))
+        if self.pe == "rope":
+            q, k = self.rope(q), self.rope(k)
         o = temporal_attention(q, k, v, num_heads=self.num_heads,
                                scale=(c // self.num_heads) ** -0.5)
         if stats is not None:
@@ -97,10 +148,10 @@ class FeedForward(nn.Module):
 
 class TemporalTransformerBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, num_attention_blocks: int,
-                 max_len: int):
+                 max_len: int, pe: str = "ape"):
         super().__init__()
         self.attention_blocks = nn.ModuleList(
-            TemporalAttention(dim, num_heads, max_len)
+            TemporalAttention(dim, num_heads, max_len, pe)
             for _ in range(num_attention_blocks))
         self.norms = nn.ModuleList(nn.LayerNorm(dim, eps=1e-5)
                                    for _ in range(num_attention_blocks))
@@ -119,12 +170,12 @@ class TemporalTransformerBlock(nn.Module):
 
 class TemporalTransformer3DModel(nn.Module):
     def __init__(self, dim: int, num_heads: int, num_transformer_block: int,
-                 num_attention_blocks: int, max_len: int):
+                 num_attention_blocks: int, max_len: int, pe: str = "ape"):
         super().__init__()
         self.norm = nn.GroupNorm(32, dim, eps=1e-6)
         self.proj_in = nn.Linear(dim, dim)
         self.transformer_blocks = nn.ModuleList(
-            TemporalTransformerBlock(dim, num_heads, num_attention_blocks, max_len)
+            TemporalTransformerBlock(dim, num_heads, num_attention_blocks, max_len, pe)
             for _ in range(num_transformer_block))
         self.proj_out = nn.Linear(dim, dim)
         nn.init.zeros_(self.proj_out.weight)   # zero_initialize
@@ -133,10 +184,10 @@ class TemporalTransformer3DModel(nn.Module):
 
 class TemporalModule(nn.Module):
     def __init__(self, dim: int, num_heads: int = 8, num_transformer_block: int = 1,
-                 num_attention_blocks: int = 2, max_len: int = 32):
+                 num_attention_blocks: int = 2, max_len: int = 32, pe: str = "ape"):
         super().__init__()
         self.temporal_transformer = TemporalTransformer3DModel(
-            dim, num_heads, num_transformer_block, num_attention_blocks, max_len)
+            dim, num_heads, num_transformer_block, num_attention_blocks, max_len, pe)
 
     def forward(self, x: torch.Tensor, b: int, t: int,
                 stats: dict | None = None) -> torch.Tensor:

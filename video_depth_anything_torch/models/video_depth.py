@@ -3,7 +3,9 @@
 The port of the JAX package's ``models/video_depth.py``: flatten
 (B, T) into the batch, take the encoder's 4 intermediate taps, decode with
 the DPT-temporal head (temporal motion modules on layer_3, layer_4, path_4
-and path_3), resize to the input size (bilinear, align corners) and ReLU.
+and path_3; the ``use_clstoken`` readout, ``use_bn`` and ``pe="rope"``
+variants as in the JAX package), resize to the input size (bilinear,
+align corners) and ReLU.
 Module attribute paths are the original checkpoint's keys, so a reference
 ``.pth`` (or ``convert.state_dict_from_params``'s output) loads with
 ``strict=True``.
@@ -27,6 +29,10 @@ class DPTHeadTemporal(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         d, f, oc = cfg.vit.embed_dim, cfg.features, list(cfg.out_channels)
+        self.use_clstoken = cfg.use_clstoken
+        if cfg.use_clstoken:
+            self.readout_projects = nn.ModuleList(
+                nn.Sequential(nn.Linear(2 * d, d), nn.GELU()) for _ in oc)
         self.projects = nn.ModuleList(nn.Conv2d(d, c, 1) for c in oc)
         self.resize_layers = nn.ModuleList([
             nn.ConvTranspose2d(oc[0], oc[0], 4, stride=4),
@@ -34,11 +40,11 @@ class DPTHeadTemporal(nn.Module):
             nn.Identity(),
             nn.Conv2d(oc[3], oc[3], 3, stride=2, padding=1),
         ])
-        self.scratch = Scratch(oc, f)
+        self.scratch = Scratch(oc, f, cfg.use_bn)
         mkw = dict(num_heads=cfg.num_attention_heads,
                    num_transformer_block=cfg.num_transformer_block,
                    num_attention_blocks=cfg.num_attention_blocks,
-                   max_len=cfg.num_frames)
+                   max_len=cfg.num_frames, pe=cfg.pe)
         self.motion_modules = nn.ModuleList(
             TemporalModule(c, **mkw) for c in (oc[2], oc[3], f, f))
 
@@ -70,7 +76,14 @@ class DPTHeadTemporal(nn.Module):
         the 3x3 scratch convs: the RefineNet cascade's inputs l1..l4 (NHWC,
         ``features`` channels, 4x, 2x, 1x and 1/2x the patch grid)."""
         n, _, d = feats[0][0].shape
-        g = [x.reshape(n, ph, pw, d) for x, _ in feats]
+        if self.use_clstoken:   # readout: linear + GELU on [patch, cls]
+            g = []
+            for (x, cls), ro in zip(feats, self.readout_projects):
+                y = torch.cat([x, cls[:, None, :].expand(x.shape)], dim=-1)
+                y = vnn.gelu(vnn.linear(y, ro[0].weight, ro[0].bias))
+                g.append(y.reshape(n, ph, pw, d))
+        else:
+            g = [x.reshape(n, ph, pw, d) for x, _ in feats]
         pj, rl = self.projects, self.resize_layers
 
         def project(i):
@@ -90,11 +103,6 @@ class DPTHeadTemporal(nn.Module):
 class VideoDepthAnything(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        for flag in ("use_bn", "use_clstoken"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(f"{flag}=True heads are not ported yet")
-        if cfg.pe != "ape":
-            raise NotImplementedError(f"temporal pe={cfg.pe!r} is not ported yet")
         self.cfg = cfg
         self.pretrained = DinoVisionTransformer(cfg.vit)
         self.head = DPTHeadTemporal(cfg)
@@ -137,7 +145,10 @@ def init_random(model: VideoDepthAnything, seed: int = 0) -> VideoDepthAnything:
     init_values; proj_out zero (zero_initialize). Then proj_out and
     cls_token get 0.02 * N(0, 1) added, so the temporal
     modules do real work — as the parity tests of the JAX package do with
-    the reference model.
+    the reference model. BatchNorm (``use_bn``): weight 1 + 0.1 N, bias
+    and running mean 0.1 N, running var 1 + 0.5 U(0, 1), so that it is no
+    identity. Everything is drawn on the parameters' device (vitg's 1.13 B
+    parameters never pass through the host).
     """
     gens: dict = {}
 
@@ -156,6 +167,13 @@ def init_random(model: VideoDepthAnything, seed: int = 0) -> VideoDepthAnything:
         if isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.BatchNorm2d):
+            for t, base, f in ((m.weight, 1.0, 0.1), (m.bias, 0.0, 0.1),
+                               (m.running_mean, 0.0, 0.1)):
+                t.copy_(base + f * torch.randn(t.shape, generator=gen(t), device=t.device))
+            m.running_var.copy_(1.0 + 0.5 * torch.rand(m.running_var.shape,
+                                                       generator=gen(m.running_var),
+                                                       device=m.running_var.device))
         elif isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             w = m.weight
             if isinstance(m, nn.ConvTranspose2d):

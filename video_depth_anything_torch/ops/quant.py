@@ -2,7 +2,8 @@
 
 The port of the JAX package's ``ops/quant.py``. The encoder's six hot
 matmuls per block (the fused ``attn.qkv``, ``attn.proj``, ``mlp.fc1``,
-``mlp.fc2``) and every linear of the four motion modules take per
+``mlp.fc2``; vitg's SwiGLU ``mlp.w12`` and ``mlp.w3``, calibrated in the
+``fc1`` / ``fc2`` slots as the JAX package does) and every linear of the four motion modules take per
 output channel int8 weights and a *static* per-tensor activation absmax
 from a one-window calibration pass (``VideoDepthAnything.calibrate_stats``).
 The q and k projection outputs are re-quantized too, so spatial attention
@@ -150,8 +151,12 @@ def quantize_encoder(encoder: nn.Module, act_stats) -> nn.Module:
         attn, mlp = blk.attn, blk.mlp
         attn.qkv = QLinear.from_linear(attn.qkv, qs["qkv"][i])
         attn.proj = QLinear.from_linear(attn.proj, qs["proj"][i])
-        mlp.fc1 = QLinear.from_linear(mlp.fc1, qs["fc1"][i])
-        mlp.fc2 = QLinear.from_linear(mlp.fc2, qs["fc2"][i])
+        if hasattr(mlp, "w12"):   # vitg's SwiGLU: the fc1 / fc2 slots are w12's and w3's
+            mlp.w12 = QLinear.from_linear(mlp.w12, qs["fc1"][i])
+            mlp.w3 = QLinear.from_linear(mlp.w3, qs["fc2"][i])
+        else:
+            mlp.fc1 = QLinear.from_linear(mlp.fc1, qs["fc1"][i])
+            mlp.fc2 = QLinear.from_linear(mlp.fc2, qs["fc2"][i])
         if "q_out" in qs:
             dev = attn.qkv.amax.device
             attn.q_amax = qs["q_out"][i].to(dev)

@@ -5,7 +5,7 @@ two-conv path it replaces.
 
 The port of the JAX package's ``tools/bench_rcu.py``. The shapes are the
 RefineNet residual conv unit inputs of vitl at 518x518 (one 32-frame
-window, 256 features). For each, in bf16, it prints the time and TF/s of
+window, 256 features); ``VITG_SHAPES`` are vitg's (384 features). For each, in bf16, it prints the time and TF/s of
 the unit's default path (relu, cuDNN conv, relu, cuDNN conv, add) and of
 K6 (``use_kernel=True``), their ratio, K6's max abs error against its
 plain version and the least time the card could take (the larger of the
@@ -22,6 +22,8 @@ from . import timing
 from .timing import time_ms
 
 SHAPES = [(32, 148, 148, 256), (32, 74, 74, 256), (32, 37, 37, 256), (32, 19, 19, 256)]
+# vitg's RefineNet units (384 features): the kernel's widest C.
+VITG_SHAPES = [(32, 148, 148, 384), (32, 74, 74, 384), (32, 37, 37, 384), (32, 19, 19, 384)]
 
 
 def flops(shape) -> float:

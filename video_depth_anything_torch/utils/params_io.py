@@ -1,0 +1,36 @@
+"""Checkpoint files: the JAX package's ``.npz`` layout and the default lookup.
+
+The port's own copy of the JAX package's ``utils/params_io.py``. A
+``.npz`` checkpoint holds the JAX parameter tree flattened to '/'-joined
+keys (encoder blocks stacked on a leading depth axis); ``load_params``
+reads it with NumPy and unflattens it (``utils/tree.py``), and
+``convert.state_dict_from_params`` turns the tree into a state_dict
+(``convert.load_checkpoint`` does both for a ``.npz`` path).
+``resolve_checkpoint`` is the reference layout's lookup, ``.npz`` before
+``.pth``.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from .tree import unflatten_tree
+
+
+def load_params(path: str) -> dict:
+    """A flat-key ``.npz`` -> the nested parameter tree of NumPy arrays."""
+    with np.load(path) as data:
+        return unflatten_tree({k: data[k] for k in data.files})
+
+
+def resolve_checkpoint(encoder: str, metric: bool = False,
+                       checkpoint_dir: str = "./checkpoints") -> str | None:
+    """``<dir>/[metric_]video_depth_anything_<encoder>.npz``, else the same
+    ``.pth``, else None."""
+    prefix = "metric_video_depth_anything" if metric else "video_depth_anything"
+    for ext in (".npz", ".pth"):
+        p = os.path.join(checkpoint_dir, f"{prefix}_{encoder}{ext}")
+        if os.path.exists(p):
+            return p
+    return None

@@ -50,7 +50,7 @@ def precision_drift_report(candidate: np.ndarray, oracle_fp32: np.ndarray) -> di
 
 
 def flip_floor_report(candidate: np.ndarray, reference: np.ndarray,
-                      floor_run: np.ndarray) -> dict:
+                      floor_run: np.ndarray, cap: bool = True) -> dict:
     """Two int8 runs on identical activation scales, held to their flip floor.
 
     fp32 rounding that differs between the runs flips a few ``quant_act``
@@ -58,7 +58,9 @@ def flip_floor_report(candidate: np.ndarray, reference: np.ndarray,
     ``floor_run`` is the reference's own run with every absmax scaled by
     1 + 1e-6: what flips alone do. ``candidate`` must lie within twice that
     of ``reference`` in the aligned max and mean error (capped at the int8
-    budget) and in the unaligned relative L2 (which sees a scale or shift).
+    budget unless ``cap`` is False: where the floor itself exceeds the
+    budget, the cap would reject the reference against itself) and in the
+    unaligned relative L2 (which sees a scale or shift).
     """
     def measure(x):
         d = np.asarray(x, np.float64) - np.asarray(reference, np.float64)
@@ -68,8 +70,9 @@ def flip_floor_report(candidate: np.ndarray, reference: np.ndarray,
         return rep
 
     got, floor = measure(candidate), measure(floor_run)
-    limit = {"max_err_frac": min(2 * floor["max_err_frac"], INT8_MAX_ERR_FRAC),
-             "mean_err_frac": min(2 * floor["mean_err_frac"], INT8_MEAN_ERR_FRAC),
+    caps = (INT8_MAX_ERR_FRAC, INT8_MEAN_ERR_FRAC) if cap else (np.inf, np.inf)
+    limit = {"max_err_frac": min(2 * floor["max_err_frac"], caps[0]),
+             "mean_err_frac": min(2 * floor["mean_err_frac"], caps[1]),
              "rel_l2": 2 * floor["rel_l2"]}
     return {"got": got, "floor": floor, "limit": limit,
             "ok": all(got[k] < v for k, v in limit.items())}

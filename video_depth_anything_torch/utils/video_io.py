@@ -1,5 +1,11 @@
-"""Host-side video decode and encode with OpenCV (the port's copy of the
-cv2 backend of the JAX package's ``utils/video_io.py``).
+"""Host-side video decode and encode (the port's copy of the JAX package's
+``utils/video_io.py``).
+
+Decode backends: OpenCV (default; its yuv->rgb rounding defines the
+golden outputs) and an ffmpeg raw-pipe subprocess (``decode_backend=
+"ffmpeg"`` or ``VDA_DECODE_BACKEND=ffmpeg``, through ``imageio_ffmpeg``).
+Asking for ffmpeg without ``imageio_ffmpeg`` raises; nothing decodes with
+cv2 in its place.
 
 fps-stride resampling, max_res downscale to even sizes, max_len
 truncation, and an inferno or grayscale depth visualisation. The streaming
@@ -13,6 +19,7 @@ run the model need neither.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import threading
@@ -66,14 +73,95 @@ def _decoded(cap, stride: int, scale_hw, process_length: int):
         count += 1
 
 
+def resolve_backend(decode_backend: str | None = None) -> str:
+    """The decode backend: the argument, else ``VDA_DECODE_BACKEND``, else
+    cv2. An unknown name raises, and so does ffmpeg without
+    ``imageio_ffmpeg`` (the JAX package warns and decodes with cv2 when the
+    request came from the environment; the port never swaps backends)."""
+    backend = decode_backend or os.environ.get("VDA_DECODE_BACKEND") or "cv2"
+    if backend not in ("cv2", "ffmpeg"):
+        raise ValueError(f"unknown decode backend {backend!r} (expected 'cv2' or 'ffmpeg')")
+    if backend == "ffmpeg":
+        try:
+            import imageio_ffmpeg  # noqa: F401
+        except ImportError:
+            raise ImportError("the ffmpeg decode backend needs the imageio_ffmpeg package, "
+                              "which is not installed; use the cv2 backend") from None
+    return backend
+
+
+def _ffmpeg_frames(video_path: str, target_fps: float, max_res: int, process_length: int):
+    """ffmpeg decodes, drops frames to the fps stride and converts to RGB24
+    in a subprocess; frames come over a pipe -> (generator, fps, out_hw).
+    The same round(original / target) stride and the same cv2 INTER_AREA
+    max_res resize as the cv2 backend."""
+    import imageio_ffmpeg
+
+    probe = imageio_ffmpeg.read_frames(video_path, pix_fmt="rgb24")
+    meta = next(probe)
+    probe.close()
+    w, h = meta["size"]
+    if int(float(meta.get("rotate") or 0)) % 360 in (90, 270):   # ffmpeg autorotates
+        w, h = h, w
+    original_fps = meta.get("fps") or 30.0
+    scale_hw = None
+    if max_res > 0 and max(h, w) > max_res:
+        scale = max_res / max(h, w)
+        scale_hw = (_ensure_even(round(h * scale)), _ensure_even(round(w * scale)))
+    fps = original_fps if target_fps <= 0 else target_fps
+    stride = max(round(original_fps / fps), 1)
+    out_params = ["-vf", f"select=not(mod(n\\,{stride}))", "-vsync", "0"] if stride > 1 else []
+    reader = imageio_ffmpeg.read_frames(video_path, pix_fmt="rgb24", output_params=out_params)
+    next(reader)   # meta
+
+    def frames():
+        import cv2
+
+        try:
+            emitted = 0
+            for raw in reader:
+                if len(raw) != h * w * 3:
+                    raise ValueError(f"ffmpeg pipe frame is {len(raw)} bytes, expected "
+                                     f"{h}x{w}x3 (probe size {meta['size']})")
+                f = np.frombuffer(raw, np.uint8).reshape(h, w, 3)
+                if scale_hw is not None:
+                    f = cv2.resize(f, (scale_hw[1], scale_hw[0]), interpolation=cv2.INTER_AREA)
+                yield f
+                emitted += 1
+                if 0 < process_length <= emitted:
+                    return
+        finally:
+            reader.close()
+
+    return frames(), fps, (scale_hw or (h, w))
+
+
+def _open_frames(video_path: str, process_length: int, target_fps: float, max_res: int,
+                 decode_backend: str | None):
+    """-> (frame generator, fps, (h, w)) from the resolved backend; closing
+    the generator releases its decoder."""
+    if resolve_backend(decode_backend) == "ffmpeg":
+        return _ffmpeg_frames(video_path, target_fps, max_res, process_length)
+    cap, fps, stride, scale_hw, out_hw = _open_video(video_path, target_fps, max_res)
+
+    def frames():
+        try:
+            yield from _decoded(cap, stride, scale_hw, process_length)
+        finally:
+            cap.release()
+
+    gen = frames()
+    weakref.finalize(gen, cap.release)   # a generator closed unstarted skips its finally
+    return gen, fps, out_hw
+
+
 def read_video_frames(video_path: str, process_length: int = -1,
-                      target_fps: float = -1, max_res: int = -1):
+                      target_fps: float = -1, max_res: int = -1,
+                      decode_backend: str | None = None):
     """-> (frames [N, H, W, 3] uint8 RGB, fps)."""
-    cap, fps, stride, scale_hw, _ = _open_video(video_path, target_fps, max_res)
-    try:
-        frames = list(_decoded(cap, stride, scale_hw, process_length))
-    finally:
-        cap.release()
+    it, fps, _ = _open_frames(video_path, process_length, target_fps, max_res, decode_backend)
+    with contextlib.closing(it):
+        frames = list(it)
     if not frames:
         raise ValueError(f"no frames decoded from {video_path}")
     return np.stack(frames, axis=0), fps
@@ -81,16 +169,18 @@ def read_video_frames(video_path: str, process_length: int = -1,
 
 def stream_video_frames(video_path: str, process_length: int = -1,
                         target_fps: float = -1, max_res: int = -1,
-                        prefetch: int = 64):
+                        prefetch: int = 64, decode_backend: str | None = None):
     """Streaming decode: -> (frame iterator, fps, (h, w)).
 
-    read_video_frames's fps stride, max_res and max_len, but a background
-    thread decodes into a queue of at most ``prefetch`` frames, so decode
-    overlaps the pipeline's compute and host memory stays O(prefetch).
-    Closing the generator ends the thread and releases its capture before
-    close() returns; dropping it, started or not, ends them too.
+    read_video_frames's fps stride, max_res, max_len and backend, but a
+    background thread decodes into a queue of at most ``prefetch`` frames,
+    so decode overlaps the pipeline's compute and host memory stays
+    O(prefetch). Closing the generator ends the thread and releases its
+    decoder before close() returns; dropping it, started or not, ends them
+    too.
     """
-    cap, fps, stride, scale_hw, out_hw = _open_video(video_path, target_fps, max_res)
+    source, fps, out_hw = _open_frames(video_path, process_length, target_fps, max_res,
+                                       decode_backend)
     q: queue.Queue = queue.Queue(maxsize=max(prefetch, 1))
     stop = object()
     abandoned = threading.Event()   # the consumer is gone: unblock put, release cap
@@ -106,13 +196,13 @@ def stream_video_frames(video_path: str, process_length: int = -1,
 
     def worker():
         try:
-            for frame in _decoded(cap, stride, scale_hw, process_length):
+            for frame in source:
                 if not put(frame):
                     break
         except Exception as e:   # surfaced on the consumer's side
             put(e)
         finally:
-            cap.release()
+            source.close()
             put(stop)
 
     thread = threading.Thread(target=worker, daemon=True)
