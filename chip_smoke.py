@@ -102,6 +102,31 @@ printing no result, without either. Phases, each fatal on failure:
       vitl metric on (e)'s video: the stitch applies no affine map, bf16
       within the drift budget of fp32, 16 EXR frames (zip and none) and one
       frame's PLY read back bit for bit.
+  (n) the training path, after (k): K2 under a gradient (the autograd
+      Function: K2 forward, the plain version's gradient backward) at vits's
+      four motion-module shapes, T = 20, bf16 and fp32: output against the
+      plain version at K2's tolerance, dq / dk / dv equal to the plain
+      version's under autograd (the plumbing) and within K2's tolerance of
+      the closed-form gradient relative to each gradient's max |g|, the
+      backward timed per shape; K1 (and its launch), K3, K4, K5 and K6
+      raise under a gradient and launch nothing; one fp32 train step (vits
+      full width and depth, 20 frames at 112^2, TF32 off; the weights and
+      clip of tools/bench_train_step.py) on the card against the CPU plain
+      path, which takes the card's side at every ReLU and |.| kink
+      (utils/kinks.py; a side moved only at an input within 1e-4 of its
+      map's max of 0): loss within 1e-4 relative, every head gradient
+      within 1e-3 of its leaf's max, no head tensor with a zero gradient but refinenet4's
+      unused first unit (0 in JAX too), 12 K1 and 8 K2 launches; 9 steps
+      at lr 1e-4 lower the loss, each step's loss differs and a gradient
+      passes the final ReLU at each, the encoder unchanged bit for bit;
+      the full-size step (vits, 1x20x518x518, bf16 with fp32 masters,
+      lstsq SSI + 10 TGM, lr 1e-4; tools/bench_train_step.py, 2 warm
+      steps, the median of 5): ms per step split into encoder, head
+      forward and loss, backward and optimizer, the K2 backward's ms and
+      share, peak memory, launches per step, every loss finite and
+      different, a gradient through the final ReLU at each step; a
+      checkpoint of that state loaded into another, the next step of each
+      equal bit for bit, with a new loss and a gradient through the ReLU.
   (f) timing: one window forward at 1x32x518x518 in bf16 and in int8,
       vits, vitl and vitg, and the cached steady state per new frame for vits;
       then a torch.profiler breakdown of the vits window by kernel kind,
@@ -109,7 +134,8 @@ printing no result, without either. Phases, each fatal on failure:
   (j) the port's bench (video_depth_anything_torch/bench.py) for vits at
       --iters 3 --warmup 1, run last: its record, which may hold no
       section error.
-  (g) one JSON line {"kernels": [...]} (nine kernels), then the card's name and power
+  (g) one JSON line {"kernels": [...]} (nine kernels, each with its
+      launches per train step; K2 with its backward's ms and error), then the card's name and power
       limit, then the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -1420,6 +1446,276 @@ def metric_path(cardname):
     return launches
 
 
+# Parameters the head's forward never reaches: refinenet4 fuses no skip, so
+# its first residual unit is unused (as in the reference); their gradient
+# is 0 in the JAX package too.
+UNREACHED = ("scratch.refinenet4.resConfUnit1.",)
+# The last conv's bias: while every output is above the final ReLU its
+# gradient is 0 in exact arithmetic (the SSI and TGM losses do not see a
+# shift), and each side reads the rounding of a sum that cancels. It is held
+# to that 0 (within 1e-3 of the largest head gradient, on both sides), not
+# to the other side's rounding, and left out of the non-zero check.
+SHIFT_FREE = "scratch.output_conv2.2.bias"
+# The fp32 train step's head gradients, card against CPU: every leaf within
+# this fraction of its max |g|. The CPU takes the card's side at every kink
+# (utils/kinks.py: a ReLU or |.| input within rounding of 0 may take either
+# side, and one such pixel moves an upstream leaf's gradient by up to 1e-2);
+# a side it moves must be at an input within KINK_X of its map's max |x| of
+# 0, 100 times the fp32 agreement of the loss, so a kernel that computed
+# another function could not hide behind the replay.
+GRAD_TOL = 1e-3
+KINK_X = 1e-4
+
+
+def k2_closed_form_grads(q, k, v, do, num_heads, scale):
+    """dq, dk, dv of K2's function in closed form, fp32, apart from
+    autograd: P = softmax(qs k^T) with qs = q * scale_in(q's dtype, scale);
+    dv = P^T do; ds = P o (do v^T - rowsum(do o o)); dq = ds k * scale;
+    dk = ds^T qs."""
+    import torch
+    from video_depth_anything_torch.ops.attention import scale_in
+
+    p, t, c = q.shape
+    sc = scale_in(q.dtype, scale)
+
+    def heads(x):
+        return x.float().reshape(p, t, num_heads, c // num_heads).transpose(1, 2)
+
+    qh, kh, vh, doh = map(heads, (q, k, v, do))
+    prob = torch.softmax((qh * sc) @ kh.transpose(-1, -2), -1)
+    ds = prob * (doh @ vh.transpose(-1, -2) - (doh * (prob @ vh)).sum(-1, keepdim=True))
+    grads = ((ds @ kh) * sc, ds.transpose(-1, -2) @ (qh * sc), prob.transpose(-1, -2) @ doh)
+    return [g.transpose(1, 2).reshape(p, t, c) for g in grads]
+
+
+def training_path(cardname):
+    """(n): the training path. K2 under a gradient against its plain
+    version and the forward-only kernels refusing one; one fp32 train step
+    on the card against the CPU plain path (vits, 20 frames at 112^2);
+    the full-size bf16 step timed (tools/bench_train_step.py); a
+    checkpoint's continuation bit for bit. Returns (the full-size step's
+    record, K2's backward entry)."""
+    import numpy as np
+    import torch
+    from video_depth_anything_torch import kernels
+    from video_depth_anything_torch.config import get_model_config
+    from video_depth_anything_torch.kernels import attention_head_major as k4
+    from video_depth_anything_torch.kernels import fused_rcu as k6
+    from video_depth_anything_torch.kernels import spatial_attention as k1
+    from video_depth_anything_torch.kernels import spatial_attention_qk8 as k3
+    from video_depth_anything_torch.kernels import spatial_attention_qkv as k5
+    from video_depth_anything_torch.kernels import temporal_attention as k2
+    from video_depth_anything_torch.models import build_model
+    from video_depth_anything_torch.tools import bench_train_step as bts
+    from video_depth_anything_torch.training import checkpoint as ckpt
+    from video_depth_anything_torch.training import train_state as ts
+    from video_depth_anything_torch.utils import kinks
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    # 1. K2 under a gradient, vits's motion modules at T = 20: the
+    # Function's output against the plain version at K2's tolerance; its
+    # dq / dk / dv equal to the plain version's under autograd bit for bit
+    # (the backward is that recomputation: this checks the plumbing), and
+    # held to the closed-form gradient at K2's tolerance relative to each
+    # gradient's max |g|.
+    grad_err, bwd_ms = {}, {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[1]
+        for mod, (p, c) in enumerate([(37 * 37, 192), (19 * 19, 384), (37 * 37, 64), (74 * 74, 64)]):
+            dh = c // 8
+            x = [torch.randn(p, 20, c, device="cuda", generator=gen).to(dt) for _ in range(4)]
+            a = [t.clone().requires_grad_() for t in x[:3]]
+            b = [t.clone().requires_grad_() for t in x[:3]]
+            o = k2.temporal_attention(*a, num_heads=8, scale=dh ** -0.5)
+            ref = k2.temporal_attention_plain(*b, num_heads=8, scale=dh ** -0.5)
+            if o.grad_fn is None or "TemporalAttentionFunction" not in o.grad_fn.name():
+                raise AssertionError(f"K2 under grad: output has grad_fn {o.grad_fn}")
+            o.backward(x[3], retain_graph=True)
+            ref.backward(x[3])
+            err, ok, said = held("temporal_attention", name, o.detach(), ref.detach())
+            tol = tolerance("temporal_attention", name, ref)
+            plumbed = all(torch.equal(u.grad, w.grad) for u, w in zip(a, b))
+            exact = k2_closed_form_grads(*x[:3], x[3], 8, dh ** -0.5)
+            rel = [((u.grad.float() - g).abs().max() / g.abs().max()).item()
+                   for u, g in zip(a, exact)]
+            ok = ok and plumbed and max(rel) <= tol and all(bool(torch.isfinite(u.grad).all())
+                                                            for u in a)
+            grad_err[name] = max(grad_err.get(name, 0.0), max(rel))
+            if name == "bfloat16":
+                bwd_ms[f"module {mod} [{p},20,{c}]"] = time_ms(
+                    lambda: torch.autograd.grad(o, a, x[3], retain_graph=True), 5, 1)
+            print(f"K2 under grad {name:8s} module {mod} [{p},20,{c}]: o {said}; dq/dk/dv equal "
+                  f"the plain autograd's: {plumbed}; against the closed form, max err / max |g| "
+                  f"{', '.join(f'{r:.2e}' for r in rel)} (tol {tol:.3g})"
+                  + (f"; backward {bwd_ms[f'module {mod} [{p},20,{c}]']:.4f} ms"
+                     if name == "bfloat16" else ""), flush=True)
+            if not ok:
+                raise AssertionError(f"K2 under grad {name} module {mod}: {said}, plain autograd "
+                                     f"equal {plumbed}, grads {rel}")
+            del x, a, b, o, ref, exact
+    # The forward-only kernels refuse a gradient, launching nothing.
+    dt = torch.bfloat16
+    qkv = torch.randn(2, 77, 3 * 384, device="cuda", generator=gen).to(dt).requires_grad_()
+    q, k, v = qkv.split(384, dim=-1)
+    q8, k8 = (torch.randint(-127, 128, (2, 77, 384), device="cuda", generator=gen,
+                            dtype=torch.int8) for _ in range(2))
+    scales = torch.tensor([1.6 / 127 / 8, 1.6 / 127], device="cuda")
+    xr = torch.randn(1, 8, 8, 256, device="cuda", generator=gen).to(dt).requires_grad_()
+    w = k6.kernel_weight(torch.randn(256, 256, 3, 3, device="cuda", generator=gen) * 0.02, dt)
+    bias = torch.zeros(256, device="cuda")
+    refusals = {
+        "K1 spatial_attention": lambda: k1.spatial_attention(q, k, v, num_heads=6, scale=0.125),
+        "K1 launch": lambda: k1.launch(q, k, v, num_heads=6, scale=0.125),
+        "K3 spatial_attention_qk8": lambda: k3.spatial_attention_qk8(q8, k8, v, scales,
+                                                                     num_heads=6),
+        "K4 attention_head_major": lambda: k4.attention_head_major(
+            *(t.unflatten(-1, (6, 64)).transpose(1, 2) for t in (q, k, v)), scale=0.125),
+        "K5 spatial_attention_qkv_fused": lambda: k5.spatial_attention_qkv_fused(qkv, num_heads=6),
+        "K6 fused_rcu": lambda: k6.fused_rcu(xr, w, bias, w, bias),
+    }
+    kernels.reset_launch_counts()
+    for label, call in refusals.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if "has no backward" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{label} ran under a gradient")
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"a refusing wrapper launched: {kernels.launch_counts()}")
+    print(f"K1 (and its launch), K3, K4, K5, K6 refuse a gradient: {len(refusals)} calls "
+          f"raised, nothing launched", flush=True)
+
+    # 2. One fp32 step, card against CPU: vits full width and depth, 20
+    # frames at 112^2, the same seeded weights and batch
+    # (tools/bench_train_step.py's, whose outputs stay above the final
+    # ReLU); then 8 more steps at the configuration's lr 1e-4.
+    cfg = get_model_config("vits", num_frames=20)
+    tc = ts.TrainConfig(compute_dtype="float32", learning_rate=1e-4, epochs=1,
+                        steps_per_epoch=9)
+    model = bts.synthetic_model(cfg, 0)
+    gpu = ts.create_train_state(copy.deepcopy(model).to("cuda"), tc)
+    cpu = ts.create_train_state(model, tc)
+    batch = bts.synthetic_batch(1, 20, 112, "cpu", seed=3)
+    gbatch = {k: v.cuda() for k, v in batch.items()}
+    enc_before = {k: t.clone() for k, t in gpu.model.pretrained.state_dict().items()}
+    kernels.reset_launch_counts()
+    sides, flips = [], []
+    with kinks.record(sides):
+        gpu, gm = ts.train_step(gpu, gbatch, cfg, tc)
+    torch.cuda.synchronize()
+    fp32_launches = {n: c for n, c in kernels.launch_counts().items() if c}
+    with kinks.replay(sides, flips):
+        cpu, cm = ts.train_step(cpu, batch, cfg, tc)
+    del sides
+    moved, moved_x = sum(n for n, _ in flips), max(x for _, x in flips)
+    loss_rel = abs(float(gm["loss"]) - float(cm["loss"])) / abs(float(cm["loss"]))
+    gmax = max(t.grad.abs().max().item() for t in cpu.head.values())
+    errs, dead = [], []
+    for name, t in gpu.head.items():
+        g, r = t.grad.float().cpu(), cpu.head[name].grad
+        if name == SHIFT_FREE:
+            shift = max(g.abs().max().item(), r.abs().max().item()) / gmax
+            continue
+        errs.append(((g - r).abs().max().item() / max(r.abs().max().item(), 1e-3 * gmax), name))
+        if not name.startswith(UNREACHED) and not g.abs().max() > 0:
+            dead.append(name)
+    errs.sort(reverse=True)
+    worst = errs[0]
+    unreached = [n for n in gpu.head if n.startswith(UNREACHED)]
+    losses = [float(gm["loss"])]
+    out_grad = [gpu.head[bts.OUTPUT_WEIGHT].grad.abs().max().item()]
+    for _ in range(8):
+        gpu, m = ts.train_step(gpu, gbatch, cfg, tc)
+        losses.append(float(m["loss"]))
+        out_grad.append(gpu.head[bts.OUTPUT_WEIGHT].grad.abs().max().item())
+    enc_same = all(torch.equal(t, enc_before[k]) for k, t in gpu.model.pretrained.state_dict().items())
+    print(f"fp32 train step, vits 1x20x112x112, card vs CPU: loss {losses[0]:.6f} vs "
+          f"{float(cm['loss']):.6f} (rel {loss_rel:.2e}, tol 1e-4); the CPU took the card's side at "
+          f"{len(flips)} kinks, moving {moved} entries at |x| up to {moved_x:.1e} of the map's max "
+          f"(tol {KINK_X}); head gradients, error over the leaf's "
+          f"max: median {errs[len(errs) // 2][0]:.2e}, worst "
+          + ", ".join(f"{e:.2e} {n}" for e, n in errs[:5]) + f" (tol {GRAD_TOL}); "
+          f"{len(gpu.head) - len(unreached) - 1}"
+          f" head tensors, none with a zero gradient: {not dead} (the {len(unreached)} of "
+          f"refinenet4's unused first unit are 0 on both sides; the output bias, shift-free, "
+          f"reads {shift:.1e} of the largest gradient, tol 1e-3); launches {fp32_launches}; "
+          f"9 steps at lr 1e-4: losses {', '.join(f'{x:.5f}' for x in losses)}, the last conv's "
+          f"largest weight gradient {', '.join(f'{x:.2e}' for x in out_grad)}; encoder "
+          f"unchanged bit for bit: {enc_same}", flush=True)
+    # The loss falls and every step's loss differs, with a gradient through
+    # the final ReLU at every step (outputs that died would hold the loss).
+    if not (loss_rel <= 1e-4 and worst[0] <= GRAD_TOL and moved_x <= KINK_X and shift <= 1e-3
+            and not dead and enc_same
+            and losses[-1] < losses[0] and len(set(losses)) == len(losses)
+            and min(out_grad) > 0 and all(map(np.isfinite, losses))):
+        raise AssertionError(f"fp32 train step: loss rel {loss_rel}, worst grad {worst}, kink "
+                             f"sides moved at |x| {moved_x}, "
+                             f"zero gradients {dead}, encoder same {enc_same}, losses {losses}, "
+                             f"output gradients {out_grad}")
+    if fp32_launches != {"spatial_attention": 12, "temporal_attention": 8}:
+        raise AssertionError(f"fp32 train step launches {fp32_launches}")
+    del cpu, gpu, gbatch
+
+    # 3. The full-size step: vits, B 1, clip 20, 518^2, bf16 with fp32
+    # masters, lstsq SSI + 10 TGM, lr 1e-4; 2 warm steps, the median of 5.
+    rec = bts.measure("vits", 20, 518, 1, iters=5, warmup=2, fp32=False, device="cuda")
+    state = rec.pop("state")
+    print(f"train step vits 1x20x518x518 bf16 on {cardname}: {rec['value']:.2f} ms/step "
+          f"(encoder {rec['split_ms']['encoder']:.2f}, head forward and loss "
+          f"{rec['split_ms']['head']:.2f}, backward {rec['split_ms']['backward']:.2f}, optimizer "
+          f"{rec['split_ms']['optimizer']:.2f} ms); K2 backward {rec['k2_backward_ms']:.3f} ms "
+          f"per step ({100 * rec['k2_backward_share']:.1f} % of the step); peak "
+          f"{rec['peak_gib']:.2f} GiB; launches per step {rec['launches_per_step']}; losses "
+          f"{', '.join(f'{x:.5f}' for x in rec['losses'])}; the last conv's largest weight "
+          f"gradient {', '.join(f'{x:.2e}' for x in rec['output_grad_max'])}", flush=True)
+    if not (rec["finite"] and len(set(rec["losses"])) == len(rec["losses"])
+            and min(rec["output_grad_max"]) > 0
+            and rec["launches_per_step"] == {"spatial_attention": 12, "temporal_attention": 8}):
+        raise AssertionError(f"full-size train step: {rec}")
+
+    # 4. A checkpoint on the card: the state saved and loaded into another;
+    # the next step of each equal bit for bit (deterministic cuDNN).
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    tmp = tempfile.mkdtemp(prefix="vda_ckpt_")
+    try:
+        tcb = ts.TrainConfig(compute_dtype="bfloat16", clip_len=20)
+        ckpt.save_checkpoint(tmp, "latest_checkpoint", state, {"epoch": 0, "trial": 0,
+                                                              "best_val_loss": 1.0})
+        other = ts.create_train_state(build_model(cfg, seed=1, device="cuda"), tcb)
+        ckpt.load_checkpoint(tmp, "latest_checkpoint", template=other)
+        data = bts.synthetic_batch(1, 20, 518, "cuda", seed=4)
+        state, m1 = ts.train_step(state, data, cfg, tcb)
+        other, m2 = ts.train_step(other, data, cfg, tcb)
+        out_grad = state.head[bts.OUTPUT_WEIGHT].grad.abs().max().item()
+        same = (float(m1["loss"]) == float(m2["loss"]) and state.step == other.step
+                and all(torch.equal(a, b) for a, b in zip(state.head.values(), other.head.values()))
+                and all(torch.equal(state.opt.state[a][key], other.opt.state[b][key])
+                        for a, b in zip(state.head.values(), other.head.values())
+                        for key in ("exp_avg", "exp_avg_sq", "step")))
+    finally:
+        torch.backends.cudnn.deterministic = det
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"checkpoint at step {state.step - 1} saved, loaded into another state: the next step "
+          f"equal bit for bit (loss, head, Adam moments, step): {same}; its loss "
+          f"{float(m1['loss']):.5f}, the last conv's largest weight gradient {out_grad:.2e}; "
+          f"phase (n) {time.perf_counter() - t0:.1f} s", flush=True)
+    if not (same and out_grad > 0 and float(m1["loss"]) not in rec["losses"]):
+        raise AssertionError(f"checkpoint continuation: equal {same}, output gradient "
+                             f"{out_grad}, loss {float(m1['loss'])} after {rec['losses']}")
+    del state, other
+    torch.cuda.empty_cache()
+    backward = {"ms": rec["k2_backward_ms"], "share_of_step": rec["k2_backward_share"],
+                "max_rel_err": max(grad_err.values()), "max_rel_err_bf16": grad_err["bfloat16"],
+                "max_rel_err_fp32": grad_err["float32"],
+                "reference": "closed-form dq, dk, dv in fp32 (k2_closed_form_grads)",
+                "per_module_bf16_ms": bwd_ms, "route": "plain PyTorch (recomputed under autograd)"}
+    return rec, backward
+
+
 def bench_phase():
     """(j): the port's bench for vits at --iters 3 --warmup 1 (its main, in
     this process); its record is printed, and a section error fails."""
@@ -1608,6 +1904,7 @@ def main() -> int:
     launches_vitg, launches_vitg_int8, launches_vitg_cascade = vitg_path(cardname)
     variants_path(cardname)
     launches_metric = metric_path(cardname)
+    train_rec, k2_backward = training_path(cardname)
     timing(cardname)
     breakdown(cardname)
     breakdown(cardname, "int8")
@@ -1673,6 +1970,7 @@ def main() -> int:
             "launches_vitg_int8": launches_vitg_int8[name],
             "launches_vitg_cascade": launches_vitg_cascade[name],
             "launches_metric_vitl": launches_metric[name],
+            "launches_train_step": train_rec["launches_per_step"].get(name, 0),
             "max_abs_err": max(errs[(name, "bfloat16")], fp32 or 0.0),
             "max_abs_err_bf16": errs[(name, "bfloat16")],
             "max_abs_err_fp32": fp32,
@@ -1683,12 +1981,13 @@ def main() -> int:
             **{key: e[key] for key in ("library", "probes", "schedules", "derived", "ratio",
                                        "k1_ms", "k1_mxu_denom_ms", "switches_ms", "vitg")
                if key in e},
+            **({"backward": k2_backward} if name == "temporal_attention" else {}),
             **({"options_source": "video_depth_anything_torch/csrc/attention_switches.cu"}
                if name in ("spatial_attention", "attention_head_major",
                            "spatial_attention_qkv_fused") else {}),
         })
-    print("long video and bench summary: " + json.dumps(
-        {"long_video": long_timings, "bench": bench_record}), flush=True)
+    print("long video, bench and train step summary: " + json.dumps(
+        {"long_video": long_timings, "bench": bench_record, "train_step": train_rec}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(cardname, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -172,3 +172,19 @@ def test_block_rel_l2_sees_a_planted_fault_in_its_block(tmp_path):
         got = errors(bad)
         assert got[5] > 2 * max(sound), (i, got)
         assert got[:5] + got[6:] == sound[:5] + sound[6:], (i, got)
+
+
+def test_bench_train_step_record_on_the_cpu(capsys):
+    """The train-step bench's one JSON line at a toy size on the CPU (no
+    CUDA events there: no split, no K2 backward share)."""
+    import json
+
+    from video_depth_anything_torch.tools import bench_train_step
+
+    assert bench_train_step.main(["--device", "cpu", "--clip_len", "2", "--size", "28",
+                                  "--iters", "1", "--warmup", "1"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["metric"] == "vits_train_step_28_clip2" and rec["unit"] == "ms/step"
+    assert rec["value"] > 0 and rec["finite"] and len(rec["losses"]) == 2
+    assert rec["launches_per_step"] == {} and rec["compute_dtype"] == "bfloat16"
+    assert "split_ms" not in rec and "state" not in rec

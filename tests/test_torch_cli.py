@@ -297,7 +297,12 @@ print("BAD", bad)
 print("HAS", all(pkg.__name__ + "." + m in sys.modules for m in (
     "bench", "run", "pipeline.infer", "utils.profiling", "utils.video_io", "metric_run",
     "depth_to_pointcloud", "utils.exr", "utils.pointcloud", "utils.params_io",
-    "utils.platform_env")))
+    "utils.platform_env", "training.train", "training.train_state", "training.losses",
+    "training.checkpoint", "training.validate", "training.visualize", "data.vkitti",
+    "data.landmarks", "data.loader", "benchmark.metrics", "benchmark.tae",
+    "benchmark.evaluate", "benchmark.manifests", "benchmark.extract", "benchmark.infer",
+    "tools.bench_train_step")))
+print("LIBS", sorted(m for m in ("yaml", "PIL", "cv2") if m in sys.modules))
 """
 
 
@@ -308,7 +313,31 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
     assert "HAS True" in res.stdout, res.stdout   # the long-video path's modules too
+    # The card's machine has none of these: nothing imports them at module level.
+    assert "LIBS []" in res.stdout, res.stdout
     assert int(res.stdout.split("LOADED")[1].split()[0]) >= 50, res.stdout
+
+
+_BLOCKED_RUN = """
+import runpy, sys
+for name in ("jax", "jaxlib", "video_depth_anything_tpu", "yaml", "PIL", "cv2"):
+    sys.modules[name] = None   # importing any of them now raises
+sys.argv = [{mod!r}, "--help"]
+runpy.run_module({mod!r}, run_name="__main__")
+"""
+
+
+@pytest.mark.parametrize("mod", ["video_depth_anything_torch.training.train",
+                                 "video_depth_anything_torch.tools.bench_train_step",
+                                 "video_depth_anything_torch.benchmark.infer"])
+def test_training_entry_points_start_without_jax(mod):
+    """The training driver, the train-step bench and the benchmark inference
+    print their help with jax, the JAX package, yaml, PIL and cv2 unimportable."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", _BLOCKED_RUN.format(mod=mod)],
+                         capture_output=True, text=True, cwd=ROOT, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "usage:" in res.stdout, res.stdout
 
 
 def test_no_port_file_names_jax():

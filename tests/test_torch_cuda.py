@@ -664,3 +664,101 @@ def test_vitg_window_peak_memory(card):
     assert kernels.launch_counts() == counts(spatial_attention=40, temporal_attention=8)
     assert got.shape == (22, 518, 518) and np.isfinite(got).all()
     assert peak < 40
+
+
+# ---------------------------------------------------------------- training
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_k2_under_grad_matches_plain_autograd(card, dt, tol):
+    """The autograd Function: K2 forward (one launch), the plain version's
+    gradient backward; dq / dk / dv within ``tol`` of each gradient's max."""
+    x = [torch.randn(300, 20, 64, device="cuda", generator=card).to(dt) for _ in range(4)]
+    a = [t.clone().requires_grad_() for t in x[:3]]
+    b = [t.clone().requires_grad_() for t in x[:3]]
+    kernels.reset_launch_counts()
+    o = k2.temporal_attention(*a, num_heads=8, scale=8 ** -0.5)
+    assert kernels.launch_counts() == counts(temporal_attention=1)
+    ref = k2.temporal_attention_plain(*b, num_heads=8, scale=8 ** -0.5)
+    o.backward(x[3])
+    ref.backward(x[3])
+    assert (o.detach().float() - ref.detach().float()).abs().max().item() <= tol
+    for u, w in zip(a, b):
+        err = (u.grad.float() - w.grad.float()).abs().max().item()
+        assert err <= tol * w.grad.float().abs().max().item()
+    assert kernels.launch_counts() == counts(temporal_attention=1)   # the backward launches none
+
+
+@pytest.mark.cuda
+def test_forward_only_kernels_refuse_grad(card):
+    dt = torch.bfloat16
+    qkv = torch.randn(2, 77, 3 * 384, device="cuda", generator=card).to(dt).requires_grad_()
+    q, k, v = qkv.split(384, dim=-1)
+    q8 = torch.randint(-127, 128, (2, 77, 384), device="cuda", generator=card, dtype=torch.int8)
+    scales = torch.tensor([0.002, 0.01], device="cuda")
+    x = torch.randn(1, 8, 8, 256, device="cuda", generator=card).to(dt).requires_grad_()
+    w = k6.kernel_weight(torch.randn(256, 256, 3, 3, device="cuda", generator=card) * 0.02, dt)
+    b = torch.zeros(256, device="cuda")
+    calls = [lambda: k1.spatial_attention(q, k, v, num_heads=6, scale=0.125),
+             lambda: k1.launch(q, k, v, num_heads=6, scale=0.125),
+             lambda: k3.spatial_attention_qk8(q8, q8, v, scales, num_heads=6),
+             lambda: k4.attention_head_major(*(t.unflatten(-1, (6, 64)).transpose(1, 2)
+                                               for t in (q, k, v)), scale=0.125),
+             lambda: k5.spatial_attention_qkv_fused(qkv, num_heads=6),
+             lambda: k6.fused_rcu(x, w, b, w, b)]
+    kernels.reset_launch_counts()
+    for call in calls:
+        with pytest.raises(RuntimeError, match="has no backward"):
+            call()
+    assert kernels.launch_counts() == counts()
+    with torch.no_grad():   # the same calls without a gradient launch
+        k1.spatial_attention(q, k, v, num_heads=6, scale=0.125)
+    assert kernels.launch_counts() == counts(spatial_attention=1)
+
+
+@pytest.mark.cuda
+def test_fp32_train_step_card_vs_cpu(card):
+    """vits at full width and depth, 20 frames at 112^2, fp32 (TF32 off),
+    tools/bench_train_step.py's weights and clip, the CPU taking the card's
+    side at every kink (utils/kinks.py; chip_smoke.py's KINK_X): the loss
+    within 1e-4, every head gradient within 1e-3 of its leaf's max, and
+    none zero but refinenet4's unused first unit (zero in JAX too). The
+    output bias's gradient is 0 in exact arithmetic while no output is
+    clipped (the losses do not see a shift): it is held to 0, within 1e-3
+    of the largest head gradient on both sides (chip_smoke.py's SHIFT_FREE)."""
+    from video_depth_anything_torch.tools.bench_train_step import (synthetic_batch,
+                                                                   synthetic_model)
+    from video_depth_anything_torch.training import train_state as ts
+    from video_depth_anything_torch.utils import kinks
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = get_model_config("vits", num_frames=20)
+        tc = ts.TrainConfig(compute_dtype="float32")
+        model = synthetic_model(cfg, 0)
+        gpu = ts.create_train_state(copy.deepcopy(model).to("cuda"), tc)
+        cpu = ts.create_train_state(model, tc)
+        batch = synthetic_batch(1, 20, 112, "cpu", seed=3)
+        kernels.reset_launch_counts()
+        sides, flips = [], []
+        with kinks.record(sides):
+            gpu, gm = ts.train_step(gpu, {k: v.cuda() for k, v in batch.items()}, cfg, tc)
+        assert kernels.launch_counts() == counts(spatial_attention=12, temporal_attention=8)
+        with kinks.replay(sides, flips):
+            cpu, cm = ts.train_step(cpu, batch, cfg, tc)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    assert abs(float(gm["loss"]) - float(cm["loss"])) <= 1e-4 * abs(float(cm["loss"]))
+    assert max(x for _, x in flips) <= 1e-4
+    gmax = max(t.grad.abs().max().item() for t in cpu.head.values())
+    for name, t in gpu.head.items():
+        g, r = t.grad.cpu(), cpu.head[name].grad
+        if name == "scratch.output_conv2.2.bias":
+            assert max(g.abs().max().item(), r.abs().max().item()) <= 1e-3 * gmax
+            continue
+        err = (g - r).abs().max().item() / max(r.abs().max().item(), 1e-3 * gmax)
+        assert err <= 1e-3, (name, err)
+        unused = name.startswith("scratch.refinenet4.resConfUnit1.")
+        assert (g.abs().max().item() == 0) == unused, name

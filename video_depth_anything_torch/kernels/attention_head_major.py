@@ -28,6 +28,7 @@ import torch
 
 from ..ops.attention import mha, scale_in
 from . import build
+from .grad import refuse_grad
 
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -85,6 +86,7 @@ def attention_head_major(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the split heads of a [B, S, H*D] tensor) the result is written there and
     ``out`` is returned; otherwise into a new contiguous tensor.
     """
+    refuse_grad("attention_head_major (K4)", q, k, v, out)
     if q.device.type == "cpu":
         o = attention_head_major_plain(q, k, v, scale=scale, mxu_denom=mxu_denom)
         return o if out is None else out.copy_(o)

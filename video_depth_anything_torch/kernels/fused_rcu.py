@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .grad import refuse_grad
 
 LANES = 128     # the JAX gate's channel multiple
 MAX_C = 384     # the widest C whose bf16 tile fits a block's shared memory
@@ -94,6 +95,7 @@ def _check(x, w1, b1, w2, b2):
 def fused_rcu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """x + conv2(relu(conv1(relu(x)))) on NHWC x -> a new [N, H, W, C]."""
+    refuse_grad("fused_rcu (K6)", x, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return fused_rcu_plain(x, w1, b1, w2, b2)
     if x.device.type != "cuda":

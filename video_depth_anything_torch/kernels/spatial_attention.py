@@ -36,6 +36,7 @@ import torch
 
 from ..ops.attention import LOG2E, merge_heads, mha, scale_in, split_heads
 from . import build
+from .grad import refuse_grad
 from .attention_head_major import attention_head_major
 
 HEAD_DIM = 64
@@ -96,6 +97,7 @@ def _check(q, k, v, num_heads):
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, num_heads: int,
            scale: float, mxu_denom: bool = False, exp2: bool = False) -> torch.Tensor:
     """Check the CUDA tensors and launch K1 (counted by the caller)."""
+    refuse_grad("spatial_attention (K1)", q, k, v)
     _check(q, k, v, num_heads)
     b, s, c = q.shape
     out = torch.empty((b, s, c), dtype=q.dtype, device=q.device)
@@ -134,6 +136,7 @@ def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       num_heads: int, scale: float, mxu_denom: bool = False,
                       exp2: bool = False) -> torch.Tensor:
     """Multi-head attention on [B, S, H*dh] -> contiguous [B, S, H*dh]."""
+    refuse_grad("spatial_attention (K1)", q, k, v)
     if q.shape[-1] != num_heads * HEAD_DIM:
         return _head_major_route(q, k, v, num_heads, scale, mxu_denom, exp2)
     if q.device.type == "cpu":

@@ -26,6 +26,7 @@ import torch
 
 from ..ops.attention import merge_heads, split_heads
 from . import build
+from .grad import refuse_grad
 from .spatial_attention import spatial_attention
 
 HEAD_DIM = 64
@@ -95,6 +96,7 @@ def spatial_attention_qk8(q8: torch.Tensor, k8: torch.Tensor, v: torch.Tensor,
                           scales: torch.Tensor, *, num_heads: int) -> torch.Tensor:
     """int8-QK multi-head attention on [B, S, H*64] -> contiguous [B, S, H*64]
     in v's dtype."""
+    refuse_grad("spatial_attention_qk8 (K3)", q8, k8, v, scales)
     if num_heads % 2 or q8.shape[1] > MAX_S or q8.shape[2] != num_heads * HEAD_DIM:
         return _fallback(q8, k8, v, scales, num_heads)
     if q8.device.type == "cpu":

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from . import spatial_attention as k1
+from .grad import refuse_grad
 
 
 def _split(qkv: torch.Tensor):
@@ -39,6 +40,7 @@ def spatial_attention_qkv_fused_plain(qkv: torch.Tensor, *, num_heads: int,
 def spatial_attention_qkv_fused(qkv: torch.Tensor, *, num_heads: int,
                                 mxu_denom: bool = False) -> torch.Tensor:
     """Multi-head attention on a fused [B, S, 3C] (q pre-scaled) -> [B, S, C]."""
+    refuse_grad("spatial_attention_qkv_fused (K5)", qkv)
     q, k, v = _split(qkv)
     if q.shape[2] != num_heads * k1.HEAD_DIM:   # K4
         return k1.spatial_attention(q, k, v, num_heads=num_heads, scale=1.0, mxu_denom=mxu_denom)

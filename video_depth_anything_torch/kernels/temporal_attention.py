@@ -13,6 +13,16 @@ kernel or raises. The bf16 kernel works on head dims in blocks of 8
 channels, up to 512: another head dim is padded with zero channels per
 head around the launch (they change no score, and their outputs are
 dropped).
+
+Under a gradient (grad mode on and an input that requires grad) the
+wrapper goes through ``TemporalAttentionFunction``: the forward is K2 (the
+plain version on the CPU), and the backward is the gradient of
+``temporal_attention_plain`` at the saved q, k, v, recomputed in plain
+PyTorch. The JAX package has no backward kernel to port (no
+``custom_vjp``: XLA differentiates its motion modules through
+``temporal_flat_attention`` / ``temporal_mha``), so this plain backward is
+the port of what JAX does, not a fallback. T <= 32, so the recomputed
+probabilities are at most [P, H, 32, 32].
 """
 from __future__ import annotations
 
@@ -83,9 +93,37 @@ def pad_heads(x: torch.Tensor, num_heads: int, head_dim: int) -> torch.Tensor:
         p, t, num_heads * head_dim)
 
 
+class TemporalAttentionFunction(torch.autograd.Function):
+    """K2 forward; backward: the plain version's gradient (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads: int, scale: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return _forward(q, k, v, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            q, k, v = (x.detach().requires_grad_(n) for x, n in zip(saved, need))
+            o = temporal_attention_plain(q, k, v, num_heads=ctx.num_heads, scale=ctx.scale)
+            wrt = [x for x, n in zip((q, k, v), need) if n]
+            grads = iter(torch.autograd.grad(o, wrt, do))
+        return (*(next(grads) if n else None for n in need), None, None)
+
+
 def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        num_heads: int, scale: float) -> torch.Tensor:
     """Per-pixel multi-head attention over frames: [P, T, C] -> [P, T, C]."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return TemporalAttentionFunction.apply(q, k, v, num_heads, scale)
+    return _forward(q, k, v, num_heads, scale)
+
+
+def _forward(q, k, v, num_heads, scale):
+    """The plain version on the CPU; K2 on a CUDA tensor, counted."""
     if q.device.type == "cpu":
         return temporal_attention_plain(q, k, v, num_heads=num_heads, scale=scale)
     if q.device.type != "cuda":
@@ -97,8 +135,7 @@ def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return torch.empty_like(q)
     if q.dtype == torch.bfloat16 and dh % 8:
         dp = -(-dh // 8) * 8
-        out = temporal_attention(*(pad_heads(x, num_heads, dp) for x in (q, k, v)),
-                                 num_heads=num_heads, scale=scale)
+        out = _forward(*(pad_heads(x, num_heads, dp) for x in (q, k, v)), num_heads, scale)
         return out.reshape(p, t, num_heads, dp)[..., :dh].reshape(p, t, c)
     q, k, v = (x if x.data_ptr() % _ALIGN == 0 else x.clone() for x in (q, k, v))
     out = torch.empty_like(q)

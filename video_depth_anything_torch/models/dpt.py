@@ -68,10 +68,10 @@ class ResidualConvUnit(nn.Module):
     def forward(self, x: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
         if use_kernel and rcu_supported(x, self.use_bn):
             return fused_rcu(x.contiguous(), *self.kernel_operands(x.dtype))
-        y = vnn.conv2d(torch.relu(x), self.conv1.weight, self.conv1.bias, padding=1)
+        y = vnn.conv2d(vnn.relu(x), self.conv1.weight, self.conv1.bias, padding=1)
         if self.use_bn:
             y = batch_norm(y, self.bn1)
-        y = vnn.conv2d(torch.relu(y), self.conv2.weight, self.conv2.bias, padding=1)
+        y = vnn.conv2d(vnn.relu(y), self.conv2.weight, self.conv2.bias, padding=1)
         if self.use_bn:
             y = batch_norm(y, self.bn2)
         return y + x
@@ -115,10 +115,12 @@ class Scratch(nn.Module):
         return [vnn.conv2d(f, getattr(self, f"layer{i + 1}_rn").weight, padding=1)
                 for i, f in enumerate(feats)]
 
-    def output_head(self, path_1: torch.Tensor, out_hw) -> torch.Tensor:
+    def output_head(self, path_1: torch.Tensor, out_hw, train: bool = False) -> torch.Tensor:
         """output_conv1 -> bilinear upsample to out_hw -> output_conv2.
 
-        fp32 input: the reference's fp32 island. bf16 input: the mixed
+        fp32 input, or ``train`` (the JAX package's ``mixed_island=not
+        train``): the reference's fp32 island, the upsampled map cast to
+        fp32 first. bf16 input otherwise: the mixed
         island — the full-resolution 3x3 conv keeps bf16 storage, and its
         bias, the ReLU, the 32->1 reduction and the final ReLU run in fp32.
         PyTorch has no bf16-in / fp32-out convolution, so the 3x3 conv's
@@ -130,9 +132,9 @@ class Scratch(nn.Module):
         out = vnn.conv2d(path_1, c1.weight, c1.bias, padding=1)
         out = resize_bilinear_align_corners(out, out_hw)
         c2a, c2b = self.output_conv2[0], self.output_conv2[2]
-        if out.dtype == torch.float32:
-            out = torch.relu(vnn.conv2d(out, c2a.weight, c2a.bias, padding=1))
-            return torch.relu(vnn.conv2d(out, c2b.weight, c2b.bias))
+        if out.dtype == torch.float32 or train:
+            out = vnn.relu(vnn.conv2d(out.float(), c2a.weight, c2a.bias, padding=1))
+            return vnn.relu(vnn.conv2d(out, c2b.weight, c2b.bias))
         out = vnn.conv2d(out, c2a.weight, None, padding=1)
         out = torch.relu(out.float() + c2a.bias.float()).to(torch.bfloat16)
         out = torch.matmul(out.float(), c2b.weight.float().reshape(-1, 1))

@@ -49,17 +49,18 @@ class DPTHeadTemporal(nn.Module):
             TemporalModule(c, **mkw) for c in (oc[2], oc[3], f, f))
 
     def forward(self, feats, ph: int, pw: int, b: int, t: int,
-                stats: dict | None = None) -> torch.Tensor:
+                stats: dict | None = None, train: bool = False) -> torch.Tensor:
         """feats: 4 x (patch tokens [B*T, P, D], cls [B*T, D]) ->
         depth [B*T, 14*ph, 14*pw, 1] fp32. With ``stats``, each motion
-        module's calibration tree lands there under "0".."3"."""
+        module's calibration tree lands there under "0".."3". ``train``:
+        the output head's full fp32 island (``Scratch.output_head``)."""
         l1, l2, l3, l4 = self.refine_inputs(feats, ph, pw, b, t, stats)
         sc = self.scratch
         path_4 = self.tmod(2, sc.refinenet4(l4, size=l3.shape[1:3]), b, t, stats)
         path_3 = self.tmod(3, sc.refinenet3(path_4, l3, size=l2.shape[1:3]), b, t, stats)
         path_2 = sc.refinenet2(path_3, l2, size=l1.shape[1:3])
         path_1 = sc.refinenet1(path_2, l1)
-        return sc.output_head(path_1, (14 * ph, 14 * pw))
+        return sc.output_head(path_1, (14 * ph, 14 * pw), train=train)
 
     def tmod(self, i: int, feat: torch.Tensor, b: int, t: int,
              stats: dict | None = None) -> torch.Tensor:
@@ -125,14 +126,21 @@ class VideoDepthAnything(nn.Module):
         self.head(feats, h // p, w // p, b, t, stats=motion)
         return {"encoder": enc, "motion": motion}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [B, T, H, W, 3] normalised -> depth [B, T, H, W] fp32, ReLU'd."""
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """x: [B, T, H, W, 3] normalised -> depth [B, T, H, W] fp32, ReLU'd.
+        ``train``: the JAX package's ``forward(train=True)`` (the output
+        head's full fp32 island)."""
         b, t, h, w, _ = x.shape
         p = self.cfg.vit.patch_size
         feats = self.encode(x.reshape(b * t, h, w, 3))
-        depth = self.head(feats, h // p, w // p, b, t)
-        depth = resize_bilinear_align_corners(depth.float(), (h, w))
-        return torch.relu(depth)[..., 0].reshape(b, t, h, w)
+        return finish(self.head(feats, h // p, w // p, b, t, train=train), b, t, h, w)
+
+
+def finish(depth: torch.Tensor, b: int, t: int, h: int, w: int) -> torch.Tensor:
+    """The head's [B*T, h', w', 1] depth -> [B, T, H, W] fp32: resized to
+    the input size (bilinear, align corners), then ReLU'd."""
+    depth = resize_bilinear_align_corners(depth.float(), (h, w))
+    return vnn.relu(depth)[..., 0].reshape(b, t, h, w)
 
 
 @torch.no_grad()

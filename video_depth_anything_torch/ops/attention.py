@@ -23,12 +23,14 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, *,
     rounding to v's dtype (what the JAX kernels compute with either
     ``mxu_denom`` setting); without it, the fp32 probabilities (the port's
     own choice). ``exp2``: the scores are in the log2 domain (the caller
-    folded log2(e) into q) and are exponentiated in base 2."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    folded log2(e) into q) and are exponentiated in base 2. The products
+    run in fp32, or in q's dtype where it is wider (float64, for gradcheck)."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
     e = (torch.exp2 if exp2 else torch.exp)(s - s.amax(-1, keepdim=True))
-    p = e.to(v.dtype).float()
+    p = e.to(v.dtype).to(acc)
     denom = (p if mxu_denom else e).sum(-1, keepdim=True).clamp_min(1e-30)
-    o = torch.matmul(p, v.float())
+    o = torch.matmul(p, v.to(acc))
     return (o / denom).to(q.dtype)
 
 

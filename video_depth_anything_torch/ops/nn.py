@@ -22,11 +22,12 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm over the last axis with fp32 statistics.
 
-    fp32 input: the exact two-pass computation. bf16 input: mean and
-    E[x^2] - mean^2 accumulate in fp32, the normalisation runs in bf16 (the
-    JAX package's rule, ops/nn.py::layer_norm).
+    bf16 input: mean and E[x^2] - mean^2 accumulate in fp32, the
+    normalisation runs in bf16 (the JAX package's rule,
+    ops/nn.py::layer_norm). Any other input (fp32; float64 for gradcheck):
+    the exact two-pass computation in its own dtype.
     """
-    if x.dtype == torch.float32:
+    if x.dtype != torch.bfloat16:
         mean = x.mean(-1, keepdim=True)
         var = (x - mean).square().mean(-1, keepdim=True)
         y = (x - mean) * torch.rsqrt(var + eps)
@@ -41,18 +42,26 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                num_groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
-    """GroupNorm over the channels of x[B, ..., C], fp32 two-pass statistics
-    over (spatial, channels-in-group) per sample; output in x's dtype."""
+    """GroupNorm over the channels of x[B, ..., C], two-pass statistics in
+    fp32 (or x's dtype where it is wider) over (spatial, channels-in-group)
+    per sample; output in x's dtype."""
     b, c = x.shape[0], x.shape[-1]
     if c % num_groups:
         raise ValueError(f"channels {c} not divisible by {num_groups} groups")
-    xf = x.float().reshape(b, -1, num_groups, c // num_groups)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(acc).reshape(b, -1, num_groups, c // num_groups)
     mean = xf.mean(dim=(1, 3), keepdim=True)
     d = xf - mean
     var = d.square().mean(dim=(1, 3), keepdim=True)
     y = (d * torch.rsqrt(var + eps)).reshape(b, -1, c)
-    y = y * weight.float() + bias.float()
+    y = y * weight.to(acc) + bias.to(acc)
     return y.to(x.dtype).reshape(x.shape)
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """max(x, 0), with the JAX package's derivative at the tie
+    (``jnp.maximum(x, 0)``: 1/2 at x == 0, where ``torch.relu`` gives 0)."""
+    return torch.maximum(x, x.new_zeros(()))
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

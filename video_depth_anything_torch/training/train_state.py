@@ -1,0 +1,207 @@
+"""Training state and the train / eval steps (the port of the JAX
+package's ``training/train_state.py``).
+
+The encoder is frozen and runs under ``torch.no_grad()`` (kernel K1, no
+gradient); the head is trained with AdamW and a cosine learning rate on
+the SSI (+ TGM) disparity loss, its motion modules running kernel K2 under
+a gradient (``kernels/temporal_attention.py``).
+
+Mixed precision as JAX does it: the master head is fp32, and every fp32
+tensor of the model is cast to the compute dtype inside the
+differentiated function (``torch.func.functional_call`` on the cast head),
+so the gradient reaching a master is the compute-dtype gradient cast to
+fp32. The frozen encoder is cast once. The forward is ``train=True`` (the
+output head's full fp32 island); the loss is fp32.
+
+What is trained: every floating tensor of the head's state dict, which is
+JAX's ``params["head"]``: the APE tables, and with ``use_bn`` the
+BatchNorm running mean and variance, which JAX's ``_batch_norm`` reads in
+inference form as leaves of the differentiated tree, so AdamW moves them
+by their gradient. BatchNorm is never put in torch's train mode (no batch
+statistics, no running update). The RoPE table is no parameter. A
+tensor the forward never reaches (refinenet4's first residual unit, unused
+as in the reference) gets a zero gradient, so AdamW decays it as optax
+decays it.
+
+AdamW is ``torch.optim.AdamW(lr, (0.9, 0.999), eps 1e-8, weight_decay)``,
+algebraically ``optax.adamw`` (decay on every trained tensor, biases
+included). The learning rate is optax's ``cosine_decay_schedule`` at the
+optimizer's count, computed from ``state.step`` at each step, so a resumed
+run continues exactly.
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+import math
+from typing import Callable
+
+import torch
+from torch.func import functional_call
+
+from ..config import ModelConfig
+from ..models.video_depth import finish
+from . import losses
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """configs/config.yaml's hyper-parameters; JAX's ``TrainConfig``."""
+    learning_rate: float = 1e-4
+    weight_decay: float = 1e-4
+    epochs: int = 500
+    steps_per_epoch: int = 100
+    clip_len: int = 20
+    ratio_ssi: float = 1.0
+    ratio_tgm: float = 10.0
+    ratio_ssi_image: float = 0.5
+    ssi_variant: str = "lstsq"
+    eta_min: float = 1e-6
+    compute_dtype: str = "bfloat16"
+
+
+def cosine_lr(tc: TrainConfig, count: int) -> float:
+    """optax.cosine_decay_schedule(learning_rate, epochs * steps_per_epoch,
+    alpha=eta_min / learning_rate) at ``count`` (0 at the first step)."""
+    decay = max(tc.epochs * tc.steps_per_epoch, 1)
+    alpha = tc.eta_min / tc.learning_rate
+    cos = 0.5 * (1.0 + math.cos(math.pi * min(count, decay) / decay))
+    return tc.learning_rate * ((1.0 - alpha) * cos + alpha)
+
+
+def make_optimizer(tc: TrainConfig, params) -> torch.optim.AdamW:
+    return torch.optim.AdamW(params, lr=cosine_lr(tc, 0), betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=tc.weight_decay)
+
+
+class TrainState:
+    """step, the model (fp32 master head and frozen fp32 encoder, in eval
+    mode), the encoder cast to the compute dtype, and AdamW's state over
+    the trained head tensors (``self.head``, name -> tensor)."""
+
+    def __init__(self, model, tc: TrainConfig):
+        self.model = model.eval()
+        self.dtype = _DTYPES[tc.compute_dtype]
+        self.step = 0
+        model.requires_grad_(False)
+        for m in model.head.modules():   # a buffer moved while it required grad is no leaf
+            for k, b in m._buffers.items():
+                if b is not None and b.grad_fn is not None:
+                    m._buffers[k] = b.detach()
+        self.head = {n: t for n, t in model.head.state_dict(keep_vars=True).items()
+                     if t.is_floating_point()}
+        for t in self.head.values():
+            t.requires_grad_(True)
+        self.opt = make_optimizer(tc, list(self.head.values()))
+        self._cast_encoder()
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    def _cast_encoder(self) -> None:
+        enc = self.model.pretrained
+        self.encoder = enc if self.dtype == torch.float32 else copy.deepcopy(enc).to(self.dtype)
+
+    def cast_head(self) -> dict:
+        """Every floating tensor of the head's state dict in the compute
+        dtype (the trained ones differentiably)."""
+        return {n: t.to(self.dtype) for n, t in
+                self.model.head.state_dict(keep_vars=True).items() if t.is_floating_point()}
+
+    def state_dict(self) -> dict:
+        return {"step": self.step, "params": self.model.state_dict(),
+                "opt_state": self.opt.state_dict()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore a ``state_dict`` (the tensors are copied into this
+        state's own, so the optimizer keeps hold of them)."""
+        self.model.load_state_dict(sd["params"], strict=True)
+        self.opt.load_state_dict(sd["opt_state"])
+        self.step = int(sd["step"])
+        self._cast_encoder()
+
+
+def create_train_state(model, tc: TrainConfig) -> TrainState:
+    """``model``: a VideoDepthAnything (``models.build_model``) on its device."""
+    return TrainState(model, tc)
+
+
+def _tensor(x, device, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(x, device=device, dtype=dtype)
+
+
+def forward(state: TrainState, video: torch.Tensor, cfg: ModelConfig, train: bool = False,
+            phase: Callable[[str], None] | None = None) -> torch.Tensor:
+    """The model at the compute dtype: video [B, T, H, W, 3] -> depth
+    [B, T, H, W] fp32. The encoder without a gradient; the head through
+    ``functional_call`` on the cast tensors (differentiable under grad
+    mode). ``phase`` is called with "encoder" and "head" as each begins."""
+    b, t, h, w, _ = video.shape
+    p = cfg.vit.patch_size
+    x = video.to(state.dtype).reshape(b * t, h, w, 3)
+    if phase:
+        phase("encoder")
+    with torch.no_grad():
+        feats = state.encoder.get_intermediate_layers(x, cfg.intermediate_layer_idx)
+    if phase:
+        phase("head")
+    depth = functional_call(state.model.head, state.cast_head(), (feats, h // p, w // p, b, t),
+                            {"train": train})
+    return finish(depth, b, t, h, w)
+
+
+def loss_fn(state: TrainState, batch: dict, cfg: ModelConfig, tc: TrainConfig,
+            phase: Callable[[str], None] | None = None):
+    """-> (total, {"ssi", "tgm"[, "ssi_image"]}); JAX's ``loss_fn``."""
+    dev = state.device
+    pred = forward(state, _tensor(batch["video"], dev), cfg, train=True, phase=phase)
+    gt = _tensor(batch["gt"], dev, torch.float32)
+    total, aux = losses.combined_loss(pred, gt, _tensor(batch["mask"], dev),
+                                      ratio_ssi=tc.ratio_ssi, ratio_tgm=tc.ratio_tgm,
+                                      ssi_variant=tc.ssi_variant)
+    if "image_video" in batch:
+        # The single-image SSI branch of the combined dataset.
+        ipred = forward(state, _tensor(batch["image_video"], dev), cfg, train=True, phase=phase)
+        imask = _tensor(batch["image_mask"], dev)
+        im = imask.to(torch.float32)
+        ssi_fn = losses.ssi_loss_lstsq if tc.ssi_variant == "lstsq" else losses.ssi_loss_median
+        l_img = ssi_fn(ipred * im, _tensor(batch["image_gt"], dev, torch.float32) * im, imask)
+        total = total + tc.ratio_ssi_image * l_img
+        aux = {**aux, "ssi_image": l_img}
+    return total, aux
+
+
+def train_step(state: TrainState, batch: dict, cfg: ModelConfig, tc: TrainConfig,
+               phase: Callable[[str], None] | None = None):
+    """One optimisation step, in place -> (state, metrics of 0-d tensors).
+    batch: video [B, T, H, W, 3] normalised, gt [B, T, H, W] disparity,
+    mask [B, T, H, W] (tensors or arrays). ``phase`` is called with
+    "encoder", "head", "backward", "optimizer" and "end" as each begins."""
+    lr = cosine_lr(tc, state.step)
+    for group in state.opt.param_groups:
+        group["lr"] = lr
+    state.opt.zero_grad(set_to_none=True)
+    with torch.enable_grad():
+        loss, aux = loss_fn(state, batch, cfg, tc, phase)
+        if phase:
+            phase("backward")
+        loss.backward()
+    for t in state.head.values():   # unreached by the forward: zero, and decayed as optax does
+        if t.grad is None:
+            t.grad = torch.zeros_like(t)
+    if phase:
+        phase("optimizer")
+    state.opt.step()
+    if phase:
+        phase("end")
+    state.step += 1
+    return state, {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+
+
+@torch.no_grad()
+def eval_step(state: TrainState, batch: dict, cfg: ModelConfig, tc: TrainConfig) -> dict:
+    loss, aux = loss_fn(state, batch, cfg, tc)
+    return {"loss": loss, **aux}

@@ -13,9 +13,15 @@ mode's pieces keep host memory bounded: ``stream_video_frames`` decodes on
 a background thread into a bounded queue, ``IncrementalVideoWriter``
 encodes frames as they arrive, ``DepthSpool`` spills depth chunks to a raw
 file with the exact running range, and ``save_depth_video_streamed``
-encodes the depth video from it block by block. cv2 (and matplotlib for
-the inferno palette) are imported inside the functions: machines that only
-run the model need neither.
+encodes the depth video from it block by block.
+
+Encode: libx264 at crf 18 through ``imageio.get_writer`` (the reference's
+setting), falling back to OpenCV ``mp4v`` only where the JAX package does:
+when the imageio ffmpeg plugin or the codec is missing, which shows at the
+first ``append_data``; the partial file is removed and the writer's
+subprocess closed first. cv2, imageio (and matplotlib for the inferno
+palette) are imported inside the functions: machines that only run the
+model need none of them.
 """
 from __future__ import annotations
 
@@ -94,7 +100,8 @@ def _ffmpeg_frames(video_path: str, target_fps: float, max_res: int, process_len
     """ffmpeg decodes, drops frames to the fps stride and converts to RGB24
     in a subprocess; frames come over a pipe -> (generator, fps, out_hw).
     The same round(original / target) stride and the same cv2 INTER_AREA
-    max_res resize as the cv2 backend."""
+    max_res resize as the cv2 backend (cv2 is needed only for that
+    resize). The JAX package's ``_ffmpeg_decode_iter``."""
     import imageio_ffmpeg
 
     probe = imageio_ffmpeg.read_frames(video_path, pix_fmt="rgb24")
@@ -115,8 +122,6 @@ def _ffmpeg_frames(video_path: str, target_fps: float, max_res: int, process_len
     next(reader)   # meta
 
     def frames():
-        import cv2
-
         try:
             emitted = 0
             for raw in reader:
@@ -125,6 +130,7 @@ def _ffmpeg_frames(video_path: str, target_fps: float, max_res: int, process_len
                                      f"{h}x{w}x3 (probe size {meta['size']})")
                 f = np.frombuffer(raw, np.uint8).reshape(h, w, 3)
                 if scale_hw is not None:
+                    import cv2
                     f = cv2.resize(f, (scale_hw[1], scale_hw[0]), interpolation=cv2.INTER_AREA)
                 yield f
                 emitted += 1
@@ -133,7 +139,9 @@ def _ffmpeg_frames(video_path: str, target_fps: float, max_res: int, process_len
         finally:
             reader.close()
 
-    return frames(), fps, (scale_hw or (h, w))
+    gen = frames()
+    weakref.finalize(gen, reader.close)   # a generator closed unstarted skips its finally
+    return gen, fps, (scale_hw or (h, w))
 
 
 def _open_frames(video_path: str, process_length: int, target_fps: float, max_res: int,
@@ -246,30 +254,67 @@ def depth_visualization(depths: np.ndarray, grayscale: bool = False,
 
 
 class IncrementalVideoWriter:
-    """An mp4 (OpenCV mp4v, as save_video) encoded frame by frame, so the
-    frames never accumulate in host memory. A context manager, or call
-    close()."""
+    """An mp4 encoded frame by frame, so the frames never accumulate in host
+    memory: libx264 crf 18, or OpenCV mp4v when the first frame shows the
+    plugin or the codec missing. A context manager, or call close()."""
 
     def __init__(self, output_path: str, fps: float):
         self.path = output_path
         self.fps = fps
         self._w = None
+        self._kind = None
 
-    def append(self, frame_rgb: np.ndarray) -> None:
+    def _open(self, first_frame: np.ndarray) -> None:
+        # imageio starts ffmpeg at the first append_data, so a missing
+        # plugin or codec shows there: the failed writer is closed (ending
+        # its subprocess) and its partial file removed before cv2 writes.
+        w = None
+        try:
+            import imageio
+
+            w = imageio.get_writer(self.path, fps=self.fps, macro_block_size=1,
+                                   codec="libx264", ffmpeg_params=["-crf", "18"])
+            w.append_data(first_frame)
+            self._w, self._kind = w, "imageio"
+            return
+        except Exception:
+            if w is not None:
+                try:
+                    w.close()
+                except Exception:
+                    pass
+            try:
+                os.remove(self.path)
+            except OSError:
+                pass
         import cv2
 
-        if self._w is None:
-            h, w = frame_rgb.shape[:2]
-            self._w = cv2.VideoWriter(self.path, cv2.VideoWriter_fourcc(*"mp4v"),
-                                      self.fps, (w, h))
-            if not self._w.isOpened():
-                self._w = None
-                raise IOError(f"cannot open video writer for {self.path}")
+        h, w = first_frame.shape[:2]
+        self._w = cv2.VideoWriter(self.path, cv2.VideoWriter_fourcc(*"mp4v"), self.fps, (w, h))
+        if not self._w.isOpened():
+            raise IOError(f"cannot open video writer for {self.path}")
+        self._kind = "cv2"
+        self._write_cv2(first_frame)
+
+    def _write_cv2(self, frame_rgb: np.ndarray) -> None:
+        import cv2
+
         self._w.write(cv2.cvtColor(frame_rgb, cv2.COLOR_RGB2BGR))
+
+    def append(self, frame_rgb: np.ndarray) -> None:
+        if self._w is None:
+            self._open(frame_rgb)
+        elif self._kind == "imageio":
+            self._w.append_data(frame_rgb)
+        else:
+            self._write_cv2(frame_rgb)
 
     def close(self) -> None:
         if self._w is not None:
-            self._w.release()
+            if self._kind == "imageio":
+                self._w.close()
+            else:
+                self._w.release()
             self._w = None
 
     def __enter__(self):
@@ -281,13 +326,14 @@ class IncrementalVideoWriter:
 
 def save_video(frames: np.ndarray, output_path: str, fps: float = 10,
                is_depths: bool = False, grayscale: bool = False) -> None:
-    """Write an mp4 (OpenCV mp4v). frames: [N, H, W, 3] uint8 RGB, or
-    [N, H, W] float depth when ``is_depths``."""
+    """Write an mp4: libx264 crf 18, else OpenCV mp4v (module docstring).
+    frames: [N, H, W, 3] uint8 RGB, or [N, H, W] float depth when
+    ``is_depths``."""
     if is_depths:
         frames = depth_visualization(np.asarray(frames), grayscale)
-    with IncrementalVideoWriter(output_path, fps) as writer:
+    with IncrementalVideoWriter(output_path, fps) as w:
         for f in np.asarray(frames):
-            writer.append(f)
+            w.append(f)
 
 
 class DepthSpool:
