@@ -127,6 +127,20 @@ printing no result, without either. Phases, each fatal on failure:
       different, a gradient through the final ReLU at each step; a
       checkpoint of that state loaded into another, the next step of each
       equal bit for bit, with a new loss and a gradient through the ReLU.
+  (o) the data-parallel path, after (n), at world size 1 over NCCL (the
+      machine has one card, and NCCL takes one card per rank; more ranks
+      are held on the CPU with gloo, tests/test_torch_parallel.py):
+      parallel.distributed.initialize over tcp://127.0.0.1, make_mesh(),
+      then (e)'s video through VideoDepthPipeline(mesh=...) at
+      windows_per_batch 2, bit for bit with the pipeline without a mesh at
+      C = 2, K1 and K2 launched; ms/frame of both (in turns) and the
+      all_gather per chunk (CUDA events); int8 the same (the mesh run
+      calibrates and writes the side file once, K3 launched, the run
+      without a mesh reads it: bit for bit); three distributed train steps
+      (vits 1x20x518x518 bf16, tools/bench_train_step.py's weights and
+      clip) against the steps without a mesh from the same state: loss and
+      every head tensor bit for bit at each step, ms/step of both; the
+      process group destroyed. A failure to start NCCL fails the run.
   (f) timing: one window forward at 1x32x518x518 in bf16 and in int8,
       vits, vitl and vitg, and the cached steady state per new frame for vits;
       then a torch.profiler breakdown of the vits window by kernel kind,
@@ -1497,6 +1511,7 @@ def training_path(cardname):
     record, K2's backward entry)."""
     import numpy as np
     import torch
+    import torch.nn.functional as F
     from video_depth_anything_torch import kernels
     from video_depth_anything_torch.config import get_model_config
     from video_depth_anything_torch.kernels import attention_head_major as k4
@@ -1519,7 +1534,7 @@ def training_path(cardname):
     # (the backward is that recomputation: this checks the plumbing), and
     # held to the closed-form gradient at K2's tolerance relative to each
     # gradient's max |g|.
-    grad_err, bwd_ms = {}, {}
+    grad_err, bwd_ms, bwd_bound, bwd_lib = {}, {}, {}, {}
     for dt in (torch.bfloat16, torch.float32):
         name = str(dt).split(".")[1]
         for mod, (p, c) in enumerate([(37 * 37, 192), (19 * 19, 384), (37 * 37, 64), (74 * 74, 64)]):
@@ -1542,13 +1557,27 @@ def training_path(cardname):
             ok = ok and plumbed and max(rel) <= tol and all(bool(torch.isfinite(u.grad).all())
                                                             for u in a)
             grad_err[name] = max(grad_err.get(name, 0.0), max(rel))
+            key = f"module {mod} [{p},20,{c}]"
             if name == "bfloat16":
-                bwd_ms[f"module {mod} [{p},20,{c}]"] = time_ms(
+                bwd_ms[key] = time_ms(
                     lambda: torch.autograd.grad(o, a, x[3], retain_graph=True), 5, 1)
+                # The least the backward can take: q, k, v, do read once and
+                # dq, dk, dv written once; five [20 x 20 x dh] products per
+                # (pixel, head): QK^T again, dV = P^T dO, dP = dO V^T,
+                # dQ = dS K, dK = dS^T Q. The library: SDPA's forward and
+                # backward on the same [P, H, 20, dh] inputs.
+                bwd_bound[key] = bound_ms(10 * p * 20 * 20 * c, 7 * p * 20 * c * 2)
+                heads = [t.detach().unflatten(-1, (8, dh)).transpose(1, 2).requires_grad_()
+                         for t in x[:3]]
+                do_h = x[3].unflatten(-1, (8, dh)).transpose(1, 2)
+                bwd_lib[key] = time_ms(lambda: torch.autograd.grad(
+                    F.scaled_dot_product_attention(*heads, scale=dh ** -0.5), heads, do_h), 5, 1)
+                del heads, do_h
             print(f"K2 under grad {name:8s} module {mod} [{p},20,{c}]: o {said}; dq/dk/dv equal "
                   f"the plain autograd's: {plumbed}; against the closed form, max err / max |g| "
                   f"{', '.join(f'{r:.2e}' for r in rel)} (tol {tol:.3g})"
-                  + (f"; backward {bwd_ms[f'module {mod} [{p},20,{c}]']:.4f} ms"
+                  + (f"; backward {bwd_ms[key]:.4f} ms (bound {bwd_bound[key][0]:.4f} ms, "
+                     f"{bwd_bound[key][1]}; SDPA forward and backward {bwd_lib[key]:.4f} ms)"
                      if name == "bfloat16" else ""), flush=True)
             if not ok:
                 raise AssertionError(f"K2 under grad {name} module {mod}: {said}, plain autograd "
@@ -1708,12 +1737,188 @@ def training_path(cardname):
                              f"{out_grad}, loss {float(m1['loss'])} after {rec['losses']}")
     del state, other
     torch.cuda.empty_cache()
+    # Per step: each of the four modules runs its two attention blocks.
     backward = {"ms": rec["k2_backward_ms"], "share_of_step": rec["k2_backward_share"],
+                "bound_ms": 2 * sum(b for b, _ in bwd_bound.values()),
+                "bound_by": sorted({by for _, by in bwd_bound.values()}),
+                "library_ms": 2 * sum(bwd_lib.values()),
+                "library": "F.scaled_dot_product_attention forward and backward, [P, 8, 20, dh]",
+                "per_module_bound_ms": {k: b for k, (b, _) in bwd_bound.items()},
+                "per_module_library_ms": bwd_lib,
                 "max_rel_err": max(grad_err.values()), "max_rel_err_bf16": grad_err["bfloat16"],
                 "max_rel_err_fp32": grad_err["float32"],
                 "reference": "closed-form dq, dk, dv in fp32 (k2_closed_form_grads)",
                 "per_module_bf16_ms": bwd_ms, "route": "plain PyTorch (recomputed under autograd)"}
     return rec, backward
+
+
+def distributed_path(cardname):
+    """(o): the data-parallel path on the card, at world size 1 over NCCL
+    (NCCL takes one card per rank, and the machine has one card): the
+    mesh pipeline (bf16 and int8, windows_per_batch 2) and a distributed
+    train step, each bit for bit with the same run without a mesh, with
+    the kernels' launches read around the mesh calls. Returns the
+    record and the mesh calls' launch counts."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from video_depth_anything_torch import kernels
+    from video_depth_anything_torch.config import get_model_config
+    from video_depth_anything_torch.models import build_model
+    from video_depth_anything_torch.parallel import distributed as pdist
+    from video_depth_anything_torch.parallel import make_mesh
+    from video_depth_anything_torch.pipeline import VideoDepthPipeline
+    from video_depth_anything_torch.pipeline import infer
+    from video_depth_anything_torch.pipeline.windows import num_windows
+    from video_depth_anything_torch.tools import bench_train_step as bts
+    from video_depth_anything_torch.training import train_state as ts
+    from video_depth_anything_torch.utils.precision import synthetic_video
+
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    pdist.initialize(f"127.0.0.1:{port}", 1, 0)            # cuda: NCCL, nothing else
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"process group on {dist.get_backend()}, not NCCL")
+    det = torch.backends.cudnn.deterministic
+    tmp = tempfile.mkdtemp(prefix="vda_mesh_")
+    try:
+        mesh = make_mesh()
+        cfg = get_model_config("vits")
+        frames = synthetic_video(n=100, hw=(480, 640), seed=3)
+        n, c = len(frames), 2
+        chunks = -(-num_windows(n) // c)      # one encode and one head call per chunk
+        rec, launches = {"windows_per_batch": c, "frames": n}, {}
+
+        def wall(pipe, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out, _ = pipe.infer_video_depth(frames, windows_per_batch=c, **kw)
+            torch.cuda.synchronize()
+            return out, 1e3 * (time.perf_counter() - t) / n
+
+        # 1. bf16 serving: the mesh pipeline against the pipeline without one.
+        plain = VideoDepthPipeline(cfg, build_model(cfg, seed=0, device="cuda"))
+        on_mesh = VideoDepthPipeline(cfg, build_model(cfg, seed=0, device="cuda"), mesh=mesh)
+        ref, _ = wall(plain)                                # warm-up
+        kernels.reset_launch_counts()
+        got, _ = wall(on_mesh)
+        launches["bf16"] = kernels.launch_counts()
+        same = np.array_equal(got, ref)
+        ms = {"plain": [], "mesh": []}
+        for which in ("plain", "mesh", "mesh", "plain"):
+            ms[which].append(wall(plain if which == "plain" else on_mesh)[1])
+        wall(on_mesh, collect_timings=True)
+        spans = on_mesh.timer.summary()
+        gather, fwd = spans["all_gather"], spans["window_forward"]
+        rec["bf16"] = {"equal_bit_for_bit": same, "ms_per_frame_plain": ms["plain"],
+                       "ms_per_frame_mesh": ms["mesh"],
+                       "all_gather_per_chunk_ms": gather["total_ms"] / fwd["count"],
+                       "all_gather_calls": gather["count"], "chunks": fwd["count"],
+                       "all_gather_share_of_window_forward": gather["total_ms"] / fwd["total_ms"]}
+        print(f"mesh (NCCL, world 1) vits bf16, {n} frames 480x640 -> 518x686, C = {c}, on "
+              f"{cardname}: equal bit for bit to no mesh: {same}; ms/frame no mesh "
+              f"{', '.join(f'{x:.3f}' for x in ms['plain'])}, mesh "
+              f"{', '.join(f'{x:.3f}' for x in ms['mesh'])}; all_gather {gather['count']} calls, "
+              f"{rec['bf16']['all_gather_per_chunk_ms']:.4f} ms per chunk (CUDA events), "
+              f"{100 * rec['bf16']['all_gather_share_of_window_forward']:.2f} % of the chunks' "
+              f"window_forward time (synchronised per chunk); launches {launches['bf16']}",
+              flush=True)
+        want = {name: 0 for name in launches["bf16"]}
+        want.update(spatial_attention=cfg.vit.depth * chunks, temporal_attention=8 * chunks)
+        if not (same and got.shape == frames.shape[:3] and launches["bf16"] == want):
+            raise AssertionError(f"mesh bf16: equal {same}, launches {launches['bf16']}")
+        del plain, on_mesh, ref, got
+
+        # 2. int8: the mesh pipeline calibrates and writes the side file
+        # (once); the pipeline without a mesh reads it.
+        path = os.path.join(tmp, "vits.int8calib.npz")
+        writes, save = [], infer._save_calib
+        infer._save_calib = lambda *a: (writes.append(a[0]), save(*a))
+        try:
+            q_mesh = VideoDepthPipeline(cfg, build_model(cfg, seed=0, device="cuda"), mesh=mesh,
+                                        quant="int8", calib_path=path)
+            kernels.reset_launch_counts()
+            got, _ = wall(q_mesh)
+            launches["int8"] = kernels.launch_counts()
+        finally:
+            infer._save_calib = save
+        q_plain = VideoDepthPipeline(cfg, build_model(cfg, seed=0, device="cuda"),
+                                     quant="int8", calib_path=path)
+        ref, _ = wall(q_plain)
+        same = np.array_equal(got, ref)
+        ms = {"plain": [], "mesh": []}
+        for which in ("plain", "mesh", "mesh", "plain"):
+            ms[which].append(wall(q_plain if which == "plain" else q_mesh)[1])
+        rec["int8"] = {"equal_bit_for_bit": same, "side_file_writes": len(writes),
+                       "ms_per_frame_plain": ms["plain"], "ms_per_frame_mesh": ms["mesh"]}
+        print(f"mesh int8: equal bit for bit to no mesh on the mesh's side file: {same}; side "
+              f"file written {len(writes)} time(s); ms/frame no mesh "
+              f"{', '.join(f'{x:.3f}' for x in ms['plain'])}, mesh "
+              f"{', '.join(f'{x:.3f}' for x in ms['mesh'])}; launches {launches['int8']}",
+              flush=True)
+        want = {name: 0 for name in launches["int8"]}   # + one float calibration forward
+        want.update(spatial_attention=cfg.vit.depth, temporal_attention=8 * (chunks + 1),
+                    spatial_attention_qk8=cfg.vit.depth * chunks)
+        if not (same and len(writes) == 1 and os.path.exists(path)
+                and launches["int8"] == want):
+            raise AssertionError(f"mesh int8: equal {same}, writes {writes}, "
+                                 f"launches {launches['int8']}")
+        del q_mesh, q_plain, ref, got
+        torch.cuda.empty_cache()
+
+        # 3. One distributed train step against the step without a mesh,
+        # from the same state (tools/bench_train_step.py's weights and
+        # clip, vits 1x20x518x518 bf16 with fp32 masters), three times.
+        torch.backends.cudnn.deterministic = True
+        cfg20 = get_model_config("vits", num_frames=20)
+        tc = ts.TrainConfig(compute_dtype="bfloat16", clip_len=20)
+        model = bts.synthetic_model(cfg20, 0, device="cuda")
+        alone = ts.create_train_state(copy.deepcopy(model), tc)
+        dp = ts.shard_train_state(ts.create_train_state(model, tc), mesh)
+        batch = bts.synthetic_batch(1, 20, 518, "cuda", seed=3)
+        step_ms = {"plain": [], "mesh": []}
+        equal, losses = [], []
+        for i in range(3):
+            out = {}
+            for which in ("plain", "mesh") if i % 2 == 0 else ("mesh", "plain"):
+                if which == "mesh":
+                    kernels.reset_launch_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, m = ts.train_step(dp if which == "mesh" else alone, batch, cfg20, tc)
+                torch.cuda.synchronize()
+                step_ms[which].append(1e3 * (time.perf_counter() - t))
+                out[which] = (float(m["loss"]), state)
+                if which == "mesh":
+                    launches["train"] = kernels.launch_counts()
+            equal.append(out["plain"][0] == out["mesh"][0] and all(
+                torch.equal(alone.head[k], dp.head[k]) for k in alone.head))
+            losses.append(out["mesh"][0])
+        rec["train"] = {"equal_bit_for_bit_per_step": equal, "losses": losses,
+                        "ms_per_step_plain": step_ms["plain"], "ms_per_step_mesh": step_ms["mesh"],
+                        "launches_per_step": {k: v for k, v in launches["train"].items() if v}}
+        print(f"distributed train step (NCCL, world 1) vits 1x20x518x518 bf16: loss and every "
+              f"head tensor equal bit for bit to the step without a mesh at each step: {equal}; "
+              f"losses {', '.join(f'{x:.5f}' for x in losses)}; ms/step no mesh "
+              f"{', '.join(f'{x:.2f}' for x in step_ms['plain'])}, mesh "
+              f"{', '.join(f'{x:.2f}' for x in step_ms['mesh'])} (the first of each warms up); "
+              f"launches per step {rec['train']['launches_per_step']}; phase (o) "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if not (all(equal) and len(set(losses)) == len(losses)
+                and rec["train"]["launches_per_step"] == {"spatial_attention": 12,
+                                                          "temporal_attention": 8}):
+            raise AssertionError(f"distributed train step: {rec['train']}")
+        del alone, dp, model, state
+    finally:
+        torch.backends.cudnn.deterministic = det
+        shutil.rmtree(tmp, ignore_errors=True)
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return rec, launches
 
 
 def bench_phase():
@@ -1905,6 +2110,7 @@ def main() -> int:
     variants_path(cardname)
     launches_metric = metric_path(cardname)
     train_rec, k2_backward = training_path(cardname)
+    mesh_rec, launches_mesh = distributed_path(cardname)
     timing(cardname)
     breakdown(cardname)
     breakdown(cardname, "int8")
@@ -1971,6 +2177,9 @@ def main() -> int:
             "launches_vitg_cascade": launches_vitg_cascade[name],
             "launches_metric_vitl": launches_metric[name],
             "launches_train_step": train_rec["launches_per_step"].get(name, 0),
+            "launches_mesh_bf16": launches_mesh["bf16"][name],
+            "launches_mesh_int8": launches_mesh["int8"][name],
+            "launches_mesh_train_step": launches_mesh["train"][name],
             "max_abs_err": max(errs[(name, "bfloat16")], fp32 or 0.0),
             "max_abs_err_bf16": errs[(name, "bfloat16")],
             "max_abs_err_fp32": fp32,
@@ -1987,7 +2196,8 @@ def main() -> int:
                            "spatial_attention_qkv_fused") else {}),
         })
     print("long video, bench and train step summary: " + json.dumps(
-        {"long_video": long_timings, "bench": bench_record, "train_step": train_rec}), flush=True)
+        {"long_video": long_timings, "bench": bench_record, "train_step": train_rec,
+         "distributed": mesh_rec}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(cardname, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

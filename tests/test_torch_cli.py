@@ -301,7 +301,8 @@ print("HAS", all(pkg.__name__ + "." + m in sys.modules for m in (
     "training.checkpoint", "training.validate", "training.visualize", "data.vkitti",
     "data.landmarks", "data.loader", "benchmark.metrics", "benchmark.tae",
     "benchmark.evaluate", "benchmark.manifests", "benchmark.extract", "benchmark.infer",
-    "tools.bench_train_step")))
+    "tools.bench_train_step", "parallel.mesh", "parallel.distributed", "app",
+    "tools.convert_checkpoint", "tools.export_checkpoint", "tools.validate_checkpoint")))
 print("LIBS", sorted(m for m in ("yaml", "PIL", "cv2") if m in sys.modules))
 """
 
@@ -329,15 +330,21 @@ runpy.run_module({mod!r}, run_name="__main__")
 
 @pytest.mark.parametrize("mod", ["video_depth_anything_torch.training.train",
                                  "video_depth_anything_torch.tools.bench_train_step",
-                                 "video_depth_anything_torch.benchmark.infer"])
+                                 "video_depth_anything_torch.benchmark.infer",
+                                 "video_depth_anything_torch.tools.convert_checkpoint",
+                                 "video_depth_anything_torch.tools.export_checkpoint",
+                                 "video_depth_anything_torch.tools.validate_checkpoint"])
 def test_training_entry_points_start_without_jax(mod):
-    """The training driver, the train-step bench and the benchmark inference
-    print their help with jax, the JAX package, yaml, PIL and cv2 unimportable."""
+    """The training driver (with its --distributed mode), the train-step
+    bench, the benchmark inference and the checkpoint tools print their
+    help with jax, the JAX package, yaml, PIL and cv2 unimportable."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", _BLOCKED_RUN.format(mod=mod)],
                          capture_output=True, text=True, cwd=ROOT, env=env, timeout=300)
     assert res.returncode == 0, res.stderr
     assert "usage:" in res.stdout, res.stdout
+    if mod.endswith("training.train"):
+        assert "--distributed" in res.stdout, res.stdout
 
 
 def test_no_port_file_names_jax():

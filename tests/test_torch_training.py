@@ -611,10 +611,16 @@ def test_driver_patience_and_cosine_horizon(vkitti_root, tmp_path, monkeypatch, 
 
 
 def test_driver_refuses_distributed():
+    """Data parallelism is ported (tests/test_torch_parallel.py); a mesh
+    with a model axis (tensor parallelism) is refused before anything runs,
+    naming the ROADMAP item."""
+    import types
+
     from video_depth_anything_torch.training.train import train
 
-    for kw in ({"distributed": True}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"), size=lambda d: (1, 2)[d])
+    for kw in ({"mesh": mesh}, {"mesh": mesh, "distributed": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, the tensor-parallel"):
             train(**kw)
 
 

@@ -1,4 +1,4 @@
-"""Carry weights across: the JAX package's parameter tree -> this port's
+"""Carry weights across: the JAX package's parameter tree <-> this port's
 ``state_dict``.
 
 The port's own copy of the logic of the JAX package's
@@ -18,6 +18,11 @@ it:
   - BatchNorm ``mean`` / ``var``    -> ``running_mean`` / ``running_var``,
                                        and a zero ``num_batches_tracked``
   - the RoPE table ``_freqs_cis``   -> dropped (a buffer the port builds)
+
+``params_from_state_dict`` is the inverse (the port's copy of
+``convert_torch_state_dict``), bit for bit: a state dict (a reference
+``.pth`` or the port's) -> the tree of float32 NumPy arrays, which
+``utils/params_io.py::save_params`` writes as the native ``.npz``.
 """
 from __future__ import annotations
 
@@ -94,6 +99,82 @@ def state_dict_from_params(params: Mapping, depth: int) -> Dict[str, torch.Tenso
                 blk["attn"] = {n: p for n, p in attn.items() if n not in ("q", "k", "v")}
                 _walk(sd, blk, f"pretrained.blocks.{i}")
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def _set(tree: dict, path: list, value) -> None:
+    node = tree
+    for k in path[:-1]:
+        node = node.setdefault(k, {})
+    node[path[-1]] = value
+
+
+def _is_norm(parts: list) -> bool:
+    """LayerNorm / GroupNorm / BatchNorm leaves are ``scale`` / ``bias``."""
+    if parts[-2] in ("norm", "norm1", "norm2", "ff_norm", "bn1", "bn2"):
+        return True
+    return len(parts) >= 3 and parts[-3] == "norms"
+
+
+def _stack(blocks: list) -> dict:
+    return {k: _stack([b[k] for b in blocks]) if isinstance(blocks[0][k], dict)
+            else np.stack([b[k] for b in blocks]) for k in blocks[0]}
+
+
+def _float32(tree: dict) -> dict:
+    return {k: _float32(v) if isinstance(v, dict) else np.asarray(v, dtype=np.float32)
+            for k, v in tree.items()}
+
+
+def params_from_state_dict(state_dict: Mapping, depth: int) -> dict:
+    """A state dict (tensors or arrays; ``pretrained.*`` with a fused
+    ``attn.qkv``, and ``head.*``) -> the JAX package's parameter tree,
+    nested dicts of float32 NumPy arrays, encoder blocks stacked on a
+    leading ``depth`` axis. ``num_batches_tracked`` is dropped (the tree
+    has no counter; ``state_dict_from_params`` regenerates it as 0)."""
+    tree: dict = {}
+    for key, val in state_dict.items():
+        v = val.detach().cpu().numpy() if isinstance(val, torch.Tensor) else np.asarray(val)
+        parts = key.split(".")
+        leaf = parts[-1]
+        if key.endswith(("attn.qkv.weight", "attn.qkv.bias")):
+            for name, x in zip("qkv", np.split(v, 3, axis=0)):
+                _set(tree, parts[:-2] + [name, "w" if leaf == "weight" else "b"],
+                     x.T if leaf == "weight" else x)
+        elif leaf == "weight":
+            if v.ndim == 4:   # OIHW -> HWIO; resize_layers.{0,1}: IOHW -> HWOI, the same
+                _set(tree, parts[:-1] + ["w"], v.transpose(2, 3, 1, 0))
+            elif v.ndim == 2:
+                _set(tree, parts[:-1] + ["w"], v.T)
+            elif v.ndim == 1:
+                _set(tree, parts[:-1] + ["scale"], v)
+            else:
+                raise ValueError(f"unexpected weight ndim for {key}: {v.shape}")
+        elif leaf == "bias":
+            _set(tree, parts[:-1] + ["bias" if v.ndim == 1 and _is_norm(parts) else "b"], v)
+        elif leaf in ("gamma", "pe"):
+            _set(tree, parts, v)
+        elif leaf == "running_mean":
+            _set(tree, parts[:-1] + ["mean"], v)
+        elif leaf == "running_var":
+            _set(tree, parts[:-1] + ["var"], v)
+        elif leaf == "num_batches_tracked":
+            continue
+        elif leaf in ("cls_token", "pos_embed", "mask_token", "register_tokens"):
+            _set(tree, parts, v)
+        else:
+            raise ValueError(f"unmapped checkpoint key: {key}")
+    blocks = tree["pretrained"]["blocks"]
+    tree["pretrained"]["blocks"] = _stack([blocks[str(i)] for i in range(depth)])
+    return _float32(tree)
+
+
+def load_torch_checkpoint(path: str, depth: int) -> dict:
+    """A ``.pth`` state dict (or one under ``"model"``) -> the parameter
+    tree (``params_from_state_dict``)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "model" in sd and isinstance(sd["model"], dict):
+        sd = sd["model"]
+    return params_from_state_dict(sd, depth)
 
 
 def model_from_params(params: Mapping, cfg) -> torch.nn.Module:

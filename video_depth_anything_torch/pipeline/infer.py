@@ -59,6 +59,21 @@ with ``calib_path`` the activation absmaxes persist in an ``.npz`` side
 file stamped with the calibration geometry (the JAX package's format, so
 either package reads the other's file) and are reused while the geometry
 matches.
+
+``mesh=`` (``parallel/mesh.py``, one device per rank) serves one video over
+the ranks of a process group, in JAX's order of operations: every rank
+holds the whole video and rank 0's weights; C is rounded up to a multiple
+of the data axis and the batched cache is used even at C = 1 (never the
+sequential one). Each rank uploads only its rows of a chunk
+(``DataAxis``): under the batched cache its share of the new frames to
+encode, whose features are all-gathered so every rank holds the resident
+table, then its share of the windows for the head; in plain mode its
+share of the windows. The depths are all-gathered before stitching, so
+every rank stitches the same windows and returns the full array. Rows are
+padded with the last one to a multiple of the axis (``all_gather`` takes
+equal sizes) and the padding is dropped after each gather. With int8
+every rank calibrates on the same first window and only rank 0 writes the
+side file. Streaming runs on a mesh of one rank only.
 """
 from __future__ import annotations
 
@@ -73,10 +88,13 @@ from typing import Iterator, NamedTuple, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import FRAME_STEP, INFER_LEN, KEYFRAMES, OVERLAP, ModelConfig
 from ..ops import quant as quant_ops
 from ..ops.resize import resize_bilinear_align_corners
+from ..parallel.distributed import process_batch_bounds
+from ..parallel.mesh import data_size, mesh_device, require_data_only, shard_params
 from ..utils.profiling import WindowTimer
 from ..utils.tree import flatten_tree, unflatten_tree
 from . import preprocess, stitch, windows
@@ -161,11 +179,79 @@ def resolve_device(device=None) -> torch.device:
 
 class Chunk(NamedTuple):
     """One device step: the source frames to upload ([H, W, 3] arrays,
-    stacked in the upload's own buffer), its window count r, and (batched
-    cache) the slot indices rel [r * 32] then res_rel [10]."""
+    stacked in the upload's own buffer), its window count r, (batched
+    cache) the slot indices rel [r * 32] then res_rel [10], and, once
+    ``DataAxis.split`` has cut ``frames`` to a rank's share, the chunk's
+    count of frames n before the cut."""
     frames: Sequence[np.ndarray]
     r: int
     index: np.ndarray | None = None
+    n: int | None = None
+
+
+class DataAxis:
+    """A chunk split over a mesh's data axis, and the all_gather that
+    reassembles it on every rank (JAX's ``_put_windows`` / ``_fetch``).
+
+    ``take(rows, unit)`` is this rank's share of ``rows`` (a list, or a
+    tensor whose first axis is taken), in groups of ``unit`` rows, padded
+    with the last group to a multiple of the axis so that every rank gets
+    as many (``process_batch_bounds``); ``gather(t, n)`` concatenates every
+    rank's ``t`` on the first axis and drops the rows from ``n`` on (the
+    padding), in ``t``'s order of strides: the resize leaves the depths in
+    a permuted layout and the stitch sums in the order of the layout, so a
+    mesh of one rank stays bit for bit with no mesh. With ``timer`` set,
+    each all_gather's time lands in its span ``all_gather``: CUDA events
+    around the collective on the card (added at ``flush``, after the call's
+    last synchronisation), the host clock on the CPU. The collectives are
+    synchronous calls, so NCCL's stream is ordered after the kernels that
+    produced ``t`` and before the ops that read the result."""
+
+    def __init__(self, mesh):
+        self.group = mesh.get_group("data")
+        self.size = data_size(mesh)
+        self.timer: WindowTimer | None = None
+        self._events: list = []
+
+    def take(self, rows, unit: int = 1):
+        groups = len(rows) // unit
+        if not groups:
+            return rows
+        pad = -groups % self.size
+        lo, hi = process_batch_bounds(groups + pad)
+        if pad and isinstance(rows, torch.Tensor):
+            rows = torch.cat([rows, rows[-unit:].repeat(pad, *([1] * (rows.dim() - 1)))])
+        elif pad:
+            rows = list(rows) + list(rows[-unit:]) * pad
+        return rows[lo * unit:hi * unit]
+
+    def split(self, chunks: Iterator[Chunk], unit: int) -> Iterator[Chunk]:
+        for chunk in chunks:
+            yield chunk._replace(frames=self.take(chunk.frames, unit), n=len(chunk.frames))
+
+    def gather(self, t: torch.Tensor, n: int) -> torch.Tensor:
+        order = sorted(range(t.dim()), key=lambda d: -t.stride(d))
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        if self.timer is None:
+            dist.all_gather(parts, t, group=self.group)
+        elif t.is_cuda:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            dist.all_gather(parts, t, group=self.group)
+            end.record()
+            self._events.append((start, end))
+        else:
+            with self.timer.span("all_gather"):
+                dist.all_gather(parts, t, group=self.group)
+        whole = torch.cat(parts)[:n]
+        out = t.new_empty([whole.shape[d] for d in order])
+        return out.permute(*[order.index(d) for d in range(t.dim())]).copy_(whole)
+
+    def flush(self) -> None:
+        for start, end in self._events:
+            self.timer.add("all_gather", start.elapsed_time(end) / 1e3)
+        self._events = []
 
 
 def slot_plan(sel: np.ndarray, res_ids: np.ndarray | None):
@@ -198,7 +284,7 @@ class SequentialKeyframeCache:
         self.kf = torch.tensor(KEYFRAMES, device=device)
         self.feats = None
 
-    def __call__(self, frames: torch.Tensor, index, r: int) -> torch.Tensor:
+    def __call__(self, frames: torch.Tensor, index, r: int, n=None) -> torch.Tensor:
         new = self.model.encode(preprocess.preprocess_frames(frames, self.net_hw, self.dtype))
         if self.feats is not None:
             kf = self.kf
@@ -214,42 +300,61 @@ class BatchedKeyframeCache:
     """A chunk of r windows: the new frames encoded once (none when all are
     resident), each window's features gathered from concat(resident, new),
     the head on [r, 32]; ReLU at network resolution, then the resize. The
-    last window's KEYFRAMES features stay in ``resident``."""
+    last window's KEYFRAMES features stay in ``resident``.
 
-    def __init__(self, model, ph: int, pw: int, net_hw, src_hw, dtype):
+    With a ``DataAxis``: ``frames`` are this rank's share of the chunk's n
+    new frames; their features are all-gathered (the padding dropped), so
+    every rank holds the whole table and the same ``resident``; the head
+    runs on this rank's share of the r windows, and the depths are
+    all-gathered."""
+
+    def __init__(self, model, ph: int, pw: int, net_hw, src_hw, dtype,
+                 axis: DataAxis | None = None):
         self.model, self.ph, self.pw = model, ph, pw
         self.net_hw, self.src_hw, self.dtype = net_hw, src_hw, dtype
+        self.axis = axis
         self.resident = None     # 4 taps x (patch [10, P, D], cls [10, D])
 
-    def __call__(self, frames: torch.Tensor, index: torch.Tensor, r: int) -> torch.Tensor:
+    def __call__(self, frames: torch.Tensor, index: torch.Tensor, r: int, n=None) -> torch.Tensor:
         rel, res_rel = index[: r * INFER_LEN], index[r * INFER_LEN:]
         table = self.resident
         if frames.shape[0]:   # K1's grid takes no empty batch
             new = self.model.encode(preprocess.preprocess_frames(frames, self.net_hw, self.dtype))
+            if self.axis is not None:
+                new = [(self.axis.gather(t, n), self.axis.gather(c, n)) for t, c in new]
             table = new if table is None else [
                 (torch.cat([rt, nt]), torch.cat([rc, nc]))
                 for (rt, rc), (nt, nc) in zip(table, new)]
+        if self.axis is not None:
+            rel = self.axis.take(rel.view(r, INFER_LEN)).reshape(-1)
+        rows = rel.shape[0] // INFER_LEN
         feats = [(t.index_select(0, rel), c.index_select(0, rel)) for t, c in table]
         self.resident = [(t.index_select(0, res_rel), c.index_select(0, res_rel))
                          for t, c in table]
-        depth = self.model.head(feats, self.ph, self.pw, r, INFER_LEN)
+        depth = self.model.head(feats, self.ph, self.pw, rows, INFER_LEN)
         depth = resize_bilinear_align_corners(torch.relu(depth.float()), self.src_hw)
-        return depth[..., 0].reshape(r, INFER_LEN, *self.src_hw)
+        depth = depth[..., 0].reshape(rows, INFER_LEN, *self.src_hw)
+        return depth if self.axis is None else self.axis.gather(depth, r)
 
 
 class PlainWindows:
     """The full forward of r windows of 32 uploaded frames (ReLU at network
-    resolution inside the model), then the resize to source."""
+    resolution inside the model), then the resize to source. With a
+    ``DataAxis`` the frames are this rank's share of the windows, and the
+    depths are all-gathered."""
 
-    def __init__(self, model, net_hw, src_hw, dtype):
+    def __init__(self, model, net_hw, src_hw, dtype, axis: DataAxis | None = None):
         self.model, self.net_hw, self.src_hw, self.dtype = model, net_hw, src_hw, dtype
+        self.axis = axis
 
-    def __call__(self, frames: torch.Tensor, index, r: int) -> torch.Tensor:
+    def __call__(self, frames: torch.Tensor, index, r: int, n=None) -> torch.Tensor:
+        rows = frames.shape[0] // INFER_LEN
         x = preprocess.preprocess_frames(frames, self.net_hw, self.dtype)
-        depth = self.model(x.reshape(r, INFER_LEN, *x.shape[1:]))   # [r, 32, h, w]
-        depth = depth.reshape(r * INFER_LEN, *depth.shape[2:], 1)
+        depth = self.model(x.reshape(rows, INFER_LEN, *x.shape[1:]))   # [rows, 32, h, w]
+        depth = depth.reshape(rows * INFER_LEN, *depth.shape[2:], 1)
         depth = resize_bilinear_align_corners(depth.float(), self.src_hw)
-        return torch.relu(depth)[..., 0].reshape(r, INFER_LEN, *self.src_hw)
+        depth = torch.relu(depth)[..., 0].reshape(rows, INFER_LEN, *self.src_hw)
+        return depth if self.axis is None else self.axis.gather(depth, r)
 
 
 class HostLink:
@@ -414,12 +519,24 @@ def _stream_batched(it, first, c: int, state: _Stream) -> Iterator[Chunk]:
 class VideoDepthPipeline:
     def __init__(self, cfg: ModelConfig, model: torch.nn.Module, device=None,
                  quant: str | None = None, calib_path: str | None = None,
-                 transfer_fp16: bool = False):
+                 transfer_fp16: bool = False, mesh=None):
+        """``mesh``: a data-parallel ``DeviceMesh`` (``parallel/mesh.py``);
+        the device is then this rank's (``parallel.mesh_device``)
+        unless ``device`` names one, and ``model`` is overwritten in place
+        with rank 0's weights."""
         if quant not in (None, "int8"):
             raise ValueError(f"quant={quant!r}; the pipeline takes None or 'int8'")
         self.cfg = cfg
+        self.mesh = mesh
+        if device is None and mesh is not None:
+            device = mesh_device(mesh)
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval().requires_grad_(False)
+        self.axis = None
+        if mesh is not None:
+            require_data_only(mesh)
+            shard_params(self.model, mesh)
+            self.axis = DataAxis(mesh)
         self.quant = quant
         self.calib_path = calib_path
         self.transfer_fp16 = transfer_fp16
@@ -445,7 +562,7 @@ class VideoDepthPipeline:
                           f"input_size/dtype; recalibrating for net_hw={net_hw}")
         x = preprocess.preprocess_frames(self._upload(calib_win), net_hw, dtype)
         stats = _numpy_tree(model.calibrate_stats(x[None]))
-        if self.calib_path:
+        if self.calib_path and (self.mesh is None or dist.get_rank() == 0):
             _save_calib(self.calib_path, stats, net_hw, dtype)
         return stats
 
@@ -490,14 +607,14 @@ class VideoDepthPipeline:
             if chunk is None:
                 return None
             index = None if chunk.index is None else link.upload([chunk.index], "index")[0]
-            return link.upload(chunk.frames, "frames"), index, chunk.r
+            return link.upload(chunk.frames, "frames"), index, chunk.r, chunk.n
 
         nxt = upload(next(chunks, None))
         carry, pending = None, []
         while nxt is not None:
-            frames, index, r = nxt
+            frames, index, r, n = nxt
             with span("window_forward"):
-                depths = forward(frames, index, r)
+                depths = forward(frames, index, r, n)
                 with span("gather_upload"):
                     nxt = upload(next(chunks, None))
                 if sync:
@@ -515,6 +632,8 @@ class VideoDepthPipeline:
         pending.append(link.download(carry[2].to(out_dtype)))
         for p in pending:
             yield link.fetch(p)
+        if self.axis is not None and self.axis.timer is not None:
+            self.axis.flush()
 
     @torch.no_grad()
     def infer_video_depth(self, frames, target_fps: float = -1,
@@ -536,15 +655,21 @@ class VideoDepthPipeline:
         model = self._model_for(frames[idx[0]], net_hw, dtype)
         c = max(1, min(windows_per_batch, len(idx)))
         src_hw = (src_h, src_w)
-        if cache_keyframe_features and c == 1:
+        axis = self.axis
+        if axis is not None:    # the chunk tiles the data axis
+            c = -(-c // axis.size) * axis.size
+            axis.timer = self.timer
+        if cache_keyframe_features and c == 1 and axis is None:
             forward = SequentialKeyframeCache(model, ph, pw, net_hw, src_hw, dtype, self.device)
             chunks = _sequential_chunks(frames, idx)
         elif cache_keyframe_features:
-            forward = BatchedKeyframeCache(model, ph, pw, net_hw, src_hw, dtype)
+            forward = BatchedKeyframeCache(model, ph, pw, net_hw, src_hw, dtype, axis)
             chunks = _batched_chunks(frames, idx, c)
         else:
-            forward = PlainWindows(model, net_hw, src_hw, dtype)
+            forward = PlainWindows(model, net_hw, src_hw, dtype, axis)
             chunks = _plain_chunks(frames, idx, c)
+        if axis is not None:
+            chunks = axis.split(chunks, 1 if cache_keyframe_features else INFER_LEN)
         out = np.empty((FRAME_STEP * len(idx) + OVERLAP, src_h, src_w), np.float32)
         at = 0
         for part in self._run(chunks, forward, self.timer):
@@ -564,8 +689,14 @@ class VideoDepthPipeline:
         ``infer_video_depth`` with the same ``windows_per_batch`` on the same
         frames. C = 1 holds one window of frames; C > 1 one chunk's new
         frames plus the last one read, the keyframe features staying on
-        the device.
+        the device. On a mesh (of one rank: more raise, as in JAX) the
+        chunked form runs at every C, as the batch API's mesh path does.
         """
+        if self.mesh is not None and dist.get_world_size() > 1:
+            raise NotImplementedError(
+                "multi-host streaming would require feeding every process "
+                "an identical frame stream; use infer_video_depth with "
+                "windows_per_batch for multi-host serving")
         c = max(1, windows_per_batch)
         it = iter(frame_iter)
         first = []
@@ -581,12 +712,15 @@ class VideoDepthPipeline:
         window0 = np.stack(first + [first[-1]] * (INFER_LEN - len(first)))
         model = self._model_for(window0, net_hw, dtype)
         del window0
-        if c == 1:
+        if c == 1 and self.axis is None:
             forward = SequentialKeyframeCache(model, ph, pw, net_hw, src_hw, dtype, self.device)
             chunks = _stream_sequential(it, first, state)
         else:
-            forward = BatchedKeyframeCache(model, ph, pw, net_hw, src_hw, dtype)
+            forward = BatchedKeyframeCache(model, ph, pw, net_hw, src_hw, dtype, self.axis)
             chunks = _stream_batched(it, first, c, state)
+            if self.axis is not None:
+                self.axis.timer = None
+                chunks = self.axis.split(chunks, 1)
         del first
         emitted = 0
         for part in self._run(chunks, forward, None):

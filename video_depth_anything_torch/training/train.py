@@ -12,8 +12,19 @@ Runs on ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch
 path). The datasets read PIL images and the config is yaml, so the
 machine needs PIL and PyYAML; validation pictures need cv2. The model
 starts from ``init_random``'s seeded weights (seed 0), as the JAX driver
-starts from ``init_params(0, cfg)``. One process only: the JAX driver's
-multi-host mode is ROADMAP queue 1's torch.distributed item.
+starts from ``init_params(0, cfg)``.
+
+``--distributed`` is data parallelism over torch.distributed, one device
+per rank, launched by torchrun:
+
+    torchrun --nproc_per_node N -m video_depth_anything_torch.training.train \
+        --distributed --data_root VKITTI [--device cpu]
+
+Each rank loads its shard of the training set (``batch_size`` rows a step;
+the global batch is N x that), the state is rank 0's
+(``train_state.shard_train_state``) and the head's gradients are averaged
+over the ranks; validation runs unsharded on every rank; rank 0 alone
+writes checkpoints, pictures and logs. NCCL on ``cuda``, gloo on ``cpu``.
 """
 from __future__ import annotations
 
@@ -24,9 +35,6 @@ import os
 import numpy as np
 
 _BATCH_KEYS = ("video", "gt", "mask", "image_video", "image_gt", "image_mask")
-_NOT_PORTED = ("multi-process training (the JAX driver's distributed / mesh mode) is not "
-               "ported yet: ROADMAP queue 1, parallel/mesh.py + parallel/distributed.py "
-               "-> torch.distributed")
 
 
 class MetricsLogger:
@@ -50,22 +58,36 @@ def train(config_path: str = "configs/config.yaml", data_root: str = None,
           resume: bool = False, mesh=None, model_cfg=None,
           resize_size: int = 518, distributed: bool = False, device=None):
     """The JAX driver's loop; ``device`` as the pipeline resolves it
-    (``cuda`` unless the caller asks for the CPU). Returns the TrainState."""
-    if distributed or mesh is not None:
-        raise NotImplementedError(_NOT_PORTED)
+    (``cuda`` unless the caller asks for the CPU; on a mesh, this rank's).
+    ``distributed`` joins the process group (``parallel.distributed.
+    initialize``: torchrun's environment, else one process) and trains on
+    its global mesh; ``mesh`` is a data-parallel mesh already made.
+    Returns the TrainState."""
     import yaml
 
     import torch
+    import torch.distributed as dist
 
     from ..config import get_model_config
     from ..data import CombinedDataset, DataLoader, VKITTIVideoDataset
     from ..models import build_model
+    from ..parallel import mesh_device, require_data_only
+    from ..parallel import distributed as pdist
     from ..pipeline.infer import resolve_device
     from . import checkpoint as ckpt
     from . import train_state as ts
     from .validate import metric_val
 
-    device = resolve_device(device)
+    if mesh is not None:
+        require_data_only(mesh)
+    if distributed:
+        pdist.initialize(device=device)
+        if mesh is None and dist.is_initialized():
+            mesh = pdist.global_mesh()
+    nproc = dist.get_world_size() if mesh is not None else 1
+    rank = dist.get_rank() if mesh is not None else 0
+    proc0 = rank == 0
+    device = resolve_device(device if device is not None or mesh is None else mesh_device(mesh))
     with open(config_path) as f:
         hp = yaml.safe_load(f)["hyper_parameter"]
 
@@ -73,6 +95,9 @@ def train(config_path: str = "configs/config.yaml", data_root: str = None,
     cfg = model_cfg or get_model_config(hp.get("encoder", "vits"), num_frames=clip_len)
     clip_len = cfg.num_frames
     batch_size = int(hp.get("batch_size", 1))
+    # JAX checks here that the global batch divides over the data axis
+    # (its train.py:63-80). With one device per rank the data axis is the
+    # rank count, so nproc x batch_size always divides; nothing to check.
     patience = int(hp.get("patient", 5))
 
     train_ds = VKITTIVideoDataset(data_root, clip_len=clip_len, split="train",
@@ -81,7 +106,11 @@ def train(config_path: str = "configs/config.yaml", data_root: str = None,
                                 resize_size=resize_size)
     if google_image_root:
         train_ds = CombinedDataset(train_ds, google_image_root, google_depth_root)
-    train_loader = DataLoader(train_ds, batch_size=batch_size, shuffle=True)
+    # Each rank loads batch_size rows of its shard; the global batch is
+    # nproc x that. Validation is not sharded: every rank walks the same
+    # clips, so the ranks stay in step.
+    train_loader = DataLoader(train_ds, batch_size=batch_size, shuffle=True,
+                              num_shards=nproc, shard_id=rank)
     val_loader = DataLoader(val_ds, batch_size=1, shuffle=False)
 
     # Cosine horizon = epochs * the loader's real steps per epoch.
@@ -97,7 +126,7 @@ def train(config_path: str = "configs/config.yaml", data_root: str = None,
     )
 
     state = ts.create_train_state(build_model(cfg, seed=0, device=device), tc)
-    logger = MetricsLogger(out_dir)
+    logger = MetricsLogger(out_dir) if proc0 else None
 
     start_epoch, best_val, trial = 0, float("inf"), 0
     if resume:
@@ -108,6 +137,8 @@ def train(config_path: str = "configs/config.yaml", data_root: str = None,
             best_val = float(extra["best_val_loss"])
             trial = int(extra["trial"])
             print(f"resumed from epoch {start_epoch}")
+    if mesh is not None:    # the fresh or resumed state, rank 0's on every rank
+        ts.shard_train_state(state, mesh)
 
     step_count = 0
     for epoch in range(start_epoch, tc.epochs):
@@ -123,7 +154,8 @@ def train(config_path: str = "configs/config.yaml", data_root: str = None,
             if max_steps > 0 and step_count >= max_steps:
                 break
         epoch_loss = float(torch.stack(step_losses).sum()) if step_losses else 0.0
-        logger.log({"train_loss": epoch_loss / max(nb, 1), "epoch": epoch}, step_count)
+        if proc0:
+            logger.log({"train_loss": epoch_loss / max(nb, 1), "epoch": epoch}, step_count)
 
         # -- validation --
         val_losses, absrels, delta1s, taes = [], [], [], []
@@ -137,16 +169,17 @@ def train(config_path: str = "configs/config.yaml", data_root: str = None,
             a, d1, t = metric_val(pred[0], batch["depth"][0],
                                   batch["extrinsics"][0], batch["intrinsics"][0])
             absrels.append(a), delta1s.append(d1), taes.append(t)
-            if first_val:
+            if first_val and proc0:
                 from .visualize import dump_val_frames
                 dump_val_frames(os.path.join(out_dir, "val_vis"), epoch,
                                 batch["video"][0], batch["gt"][0],
                                 batch["mask"][0], pred[0])
             first_val = False
         val_loss = float(np.mean(val_losses)) if val_losses else float("inf")
-        logger.log({"val_loss": val_loss, "absrel": np.mean(absrels),
-                    "delta1": np.mean(delta1s), "tae": np.mean(taes),
-                    "epoch": epoch}, step_count)
+        if proc0:
+            logger.log({"val_loss": val_loss, "absrel": np.mean(absrels),
+                        "delta1": np.mean(delta1s), "tae": np.mean(taes),
+                        "epoch": epoch}, step_count)
 
         # best / trial before latest_checkpoint, so a resume restores this
         # epoch's post-validation counters.
@@ -156,10 +189,11 @@ def train(config_path: str = "configs/config.yaml", data_root: str = None,
         else:
             trial += 1
         extra = {"epoch": epoch, "best_val_loss": best_val, "trial": trial}
-        ckpt.save_checkpoint(out_dir, "latest_checkpoint", state, extra)
-        if improved:
-            ckpt.save_checkpoint(out_dir, "best_checkpoint", state, extra)
-        elif trial >= patience:
+        if proc0:
+            ckpt.save_checkpoint(out_dir, "latest_checkpoint", state, extra)
+            if improved:
+                ckpt.save_checkpoint(out_dir, "best_checkpoint", state, extra)
+        if not improved and trial >= patience:
             print(f"early stop at epoch {epoch} (patience {patience})")
             break
         if max_steps > 0 and step_count >= max_steps:
@@ -177,11 +211,15 @@ def main(argv=None):
     parser.add_argument("--max_steps", type=int, default=-1)
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--device", default="cuda",
-                        help="cuda (default) or cpu (the plain PyTorch path)")
+                        help="cuda (default; under --distributed this rank's card, NCCL) "
+                             "or cpu (the plain PyTorch path; gloo)")
+    parser.add_argument("--distributed", action="store_true",
+                        help="data parallelism over the ranks torchrun starts: "
+                             "torch.distributed, a global mesh, per-rank data shards")
     args = parser.parse_args(argv)
     train(args.config, args.data_root, args.google_image_root,
           args.google_depth_root, args.out_dir, args.max_steps, args.resume,
-          device=args.device)
+          distributed=args.distributed, device=args.device)
 
 
 if __name__ == "__main__":

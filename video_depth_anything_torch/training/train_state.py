@@ -28,6 +28,18 @@ algebraically ``optax.adamw`` (decay on every trained tensor, biases
 included). The learning rate is optax's ``cosine_decay_schedule`` at the
 optimizer's count, computed from ``state.step`` at each step, so a resumed
 run continues exactly.
+
+Data parallelism (``shard_train_state(state, mesh)``, JAX's
+``shard_train_state``): every rank holds the whole state, rank 0's after a
+broadcast, and feeds its own rows of the global batch. After the backward
+the head's master gradients are all-reduced (one flattened fp32 buffer,
+SUM, then / world) and the reported losses are the ranks' mean. Every loss
+is a mean over per-sample terms of equal weight ([B, T] frames, [B, T - 1]
+pairs; ``losses.py``), so with equal shards the mean of the ranks' losses
+is the loss of the global batch and the mean of their gradients its
+gradient. The head is not wrapped in DDP: it runs through
+``functional_call`` on cast tensors, which DDP's module hooks do not see.
+BatchNorm never runs in train mode, so no batch statistic needs a sync.
 """
 from __future__ import annotations
 
@@ -85,6 +97,7 @@ class TrainState:
         self.model = model.eval()
         self.dtype = _DTYPES[tc.compute_dtype]
         self.step = 0
+        self.mesh = None      # set by shard_train_state
         model.requires_grad_(False)
         for m in model.head.modules():   # a buffer moved while it required grad is no leaf
             for k, b in m._buffers.items():
@@ -127,6 +140,38 @@ class TrainState:
 def create_train_state(model, tc: TrainConfig) -> TrainState:
     """``model``: a VideoDepthAnything (``models.build_model``) on its device."""
     return TrainState(model, tc)
+
+
+def shard_train_state(state: TrainState, mesh) -> TrainState:
+    """Replicate ``state`` over ``mesh``'s data axis, in place: the model
+    (fp32 master head with its BatchNorm statistics, frozen encoder),
+    AdamW's moments and step counters, and the step, all rank 0's. Run it
+    at creation and after a resume; train_step then averages gradients
+    over the mesh."""
+    from ..parallel import broadcast_, shard_params
+
+    shard_params(state.model, mesh)
+    moments = [v for t in state.head.values() for v in state.opt.state.get(t, {}).values()]
+    step = torch.tensor([state.step], dtype=torch.int64)
+    broadcast_(moments + [step], mesh)
+    state.step = int(step)
+    state.mesh = mesh
+    state._cast_encoder()
+    return state
+
+
+def _mean_over_mesh(tensors, mesh) -> None:
+    """Every tensor replaced in place by its mean over the data axis: one
+    flattened buffer, all-reduced as a SUM, then divided by the axis size."""
+    import torch.distributed as dist
+
+    from ..parallel import data_size
+
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.get_group("data"))
+    flat /= data_size(mesh)
+    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
 
 
 def _tensor(x, device, dtype=None) -> torch.Tensor:
@@ -192,13 +237,19 @@ def train_step(state: TrainState, batch: dict, cfg: ModelConfig, tc: TrainConfig
     for t in state.head.values():   # unreached by the forward: zero, and decayed as optax does
         if t.grad is None:
             t.grad = torch.zeros_like(t)
+    metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+    if state.mesh is not None:
+        _mean_over_mesh([t.grad for t in state.head.values()], state.mesh)
+        values = torch.stack(list(metrics.values()))
+        _mean_over_mesh([values], state.mesh)
+        metrics = dict(zip(metrics, values.unbind()))
     if phase:
         phase("optimizer")
     state.opt.step()
     if phase:
         phase("end")
     state.step += 1
-    return state, {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+    return state, metrics
 
 
 @torch.no_grad()

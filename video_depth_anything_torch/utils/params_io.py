@@ -2,10 +2,12 @@
 
 The port's own copy of the JAX package's ``utils/params_io.py``. A
 ``.npz`` checkpoint holds the JAX parameter tree flattened to '/'-joined
-keys (encoder blocks stacked on a leading depth axis); ``load_params``
-reads it with NumPy and unflattens it (``utils/tree.py``), and
+keys (encoder blocks stacked on a leading depth axis); ``save_params``
+writes one (``np.savez_compressed``, as JAX does), ``load_params`` reads it
+with NumPy and unflattens it (``utils/tree.py``), and
 ``convert.state_dict_from_params`` turns the tree into a state_dict
 (``convert.load_checkpoint`` does both for a ``.npz`` path).
+``load_checkpoint`` gives the tree of a ``.npz`` or a ``.pth``.
 ``resolve_checkpoint`` is the reference layout's lookup, ``.npz`` before
 ``.pth``.
 """
@@ -15,13 +17,27 @@ import os
 
 import numpy as np
 
-from .tree import unflatten_tree
+from .tree import flatten_tree, unflatten_tree
+
+
+def save_params(path: str, params) -> None:
+    """The nested parameter tree -> a flat-key ``.npz``."""
+    np.savez_compressed(path, **flatten_tree(params))
 
 
 def load_params(path: str) -> dict:
     """A flat-key ``.npz`` -> the nested parameter tree of NumPy arrays."""
     with np.load(path) as data:
         return unflatten_tree({k: data[k] for k in data.files})
+
+
+def load_checkpoint(path: str, cfg) -> dict:
+    """The parameter tree of a native ``.npz`` or a torch ``.pth`` / ``.pt``
+    (converted by ``convert.load_torch_checkpoint``)."""
+    if path.endswith((".pth", ".pt")):
+        from ..convert import load_torch_checkpoint
+        return load_torch_checkpoint(path, cfg.vit.depth)
+    return load_params(path)
 
 
 def resolve_checkpoint(encoder: str, metric: bool = False,

@@ -5,6 +5,8 @@
   total) of the pipeline's chunks, ``VideoDepthPipeline.infer_video_depth(
   collect_timings=True)``. The pipeline synchronises the card at the end of
   each ``window_forward`` span, so a span holds the chunk's device time.
+  On a mesh, ``all_gather`` holds each collective's time (CUDA events on
+  the card, ``add``-ed after the call).
 - ``trace(log_dir)``: a ``torch.profiler`` run of the block (CPU and, where
   present, CUDA activity) written to ``log_dir`` as a Chrome trace, which
   Perfetto and ``chrome://tracing`` open; a no-op for ``None``
@@ -27,7 +29,10 @@ class WindowTimer:
         try:
             yield
         finally:
-            self.samples.setdefault(name, []).append(time.perf_counter() - t0)
+            self.add(name, time.perf_counter() - t0)
+
+    def add(self, name: str, seconds: float) -> None:
+        self.samples.setdefault(name, []).append(seconds)
 
     def summary(self) -> dict[str, dict[str, float]]:
         out = {}
