@@ -141,6 +141,30 @@ printing no result, without either. Phases, each fatal on failure:
       clip) against the steps without a mesh from the same state: loss and
       every head tensor bit for bit at each step, ms/step of both; the
       process group destroyed. A failure to start NCCL fails the run.
+  (p) the mesh's model axis, after (o): K1 at vitl's 8 local heads [32,
+      1370, 512] and vits' 3 [22, 1814, 192], K3 at vitl's 8 and K2 with
+      4 local heads at vitl's and vits' motion modules (C/2: dh 128, 32;
+      24, 48, 8), each against its plain version (bf16 timed beside its
+      bound and SDPA); then two ranks on cuda:0 (this file started twice
+      with --model-axis-rank; NCCL takes one card per rank, so gloo with
+      CUDA tensors) on a (1, 2) mesh: vitl at full width (8 of 16 heads
+      per rank) through VideoDepthPipeline(mesh=...) on (e)'s video at
+      windows_per_batch 2 in bf16 (within the drift budget of the same
+      pipeline without a mesh) and int8 (calibrating and writing its side
+      file once; within twice the flip floor of the pipeline without a
+      mesh on that file, and reported against it bit for bit), the reduced
+      clip in fp32 (rtol = atol = 2e-4); three vits train steps at (n)'s
+      setting in bf16 and in fp32 (every fp32 step's loss within 5e-4
+      relative of the step without a mesh, every bf16 step's within the
+      larger of 5e-4 and bf16's own distance from fp32 at that step; after
+      three steps the share of the head's entries off by more than 1e-3
+      of their leaf's max from the head trained without a mesh within the
+      larger of 0.1 % and twice the sum-order floor's), the floor being the
+      same runs without a mesh with every split unit's halves swapped
+      (reported for the drift and the losses too); the two ranks bit for
+      bit in every output, loss and gathered head; K1, K2 and K3 launch counts read around each mesh
+      call. A rank that fails fails the run; its times are two processes
+      sharing one card.
   (f) timing: one window forward at 1x32x518x518 in bf16 and in int8,
       vits, vitl and vitg, and the cached steady state per new frame for vits;
       then a torch.profiler breakdown of the vits window by kernel kind,
@@ -149,7 +173,8 @@ printing no result, without either. Phases, each fatal on failure:
       --iters 3 --warmup 1, run last: its record, which may hold no
       section error.
   (g) one JSON line {"kernels": [...]} (nine kernels, each with its
-      launches per train step; K2 with its backward's ms and error), then the card's name and power
+      launches per train step and on (p)'s mesh calls, K1 / K2 / K3 with
+      their local shapes' times; K2 with its backward's ms and error), then the card's name and power
       limit, then the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -1921,6 +1946,499 @@ def distributed_path(cardname):
     return rec, launches
 
 
+# (p): the mesh's model axis on one card. NCCL takes one card per rank, so
+# the two ranks are two processes on cuda:0 joined over gloo, whose
+# broadcast / all_reduce / all_gather take CUDA tensors (through host
+# memory). Their times are two processes sharing one card, never a cost of
+# tensor parallelism across cards.
+MODEL_AXIS_TIMEOUT_S = 600
+MODEL_AXIS_FRAMES = 100
+# A head trained three steps on the mesh against the head trained without:
+# an entry is off when it differs by more than HEAD_TOL of its leaf's max
+# |value| (floored at 1e-3 of the largest leaf's), phase (n)'s rule for
+# gradients. At most the larger of HEAD_SHARE and twice the share that
+# swap_halves moves without a mesh may be off. AdamW moves a weight by
+# about the learning rate whatever the size of its gradient, so a
+# near-zero gradient that changes sign under another sum order moves its
+# weight by ~2 lr: ~3e-5 of vits' head in fp32, ~0.8 % in bf16, with or
+# without a mesh (PERF.md §6). The split tensors are 55 % of the head's
+# entries, and a fault in the split of their moments would move most of
+# them.
+HEAD_TOL = 1e-3
+HEAD_SHARE = 1e-3
+
+
+def head_errors(got: dict, ref: dict, lr: float) -> dict:
+    """``got`` against ``ref`` by HEAD_TOL's rule: the share of entries
+    off, and the three worst leaves as (max error over the leaf's max,
+    leaf, max abs difference over the learning rate, entries off,
+    entries)."""
+    import numpy as np
+
+    leaves = {k: v for k, v in ref.items() if v.dtype.kind == "f"}
+    top = max(float(np.abs(v).max()) for v in leaves.values())
+    rows = []
+    for k, v in leaves.items():
+        d = np.abs(got[k].astype(np.float64) - v)
+        floor = max(float(np.abs(v).max()), 1e-3 * top)
+        rows.append((float(d.max()) / floor, k, float(d.max()) / lr,
+                     int((d > HEAD_TOL * floor).sum()), int(v.size)))
+    rows.sort(reverse=True)
+    return {"share_off": sum(r[3] for r in rows) / sum(r[4] for r in rows),
+            "entries_off": sum(r[3] for r in rows), "worst": rows[:3]}
+
+
+def swap_halves(model) -> None:
+    """``model`` with the two halves of every unit a model axis of 2 splits
+    (what ranks 0 and 1 hold: heads, MLP hidden units, GEGLU units) in the
+    other order, in place. The same function in exact arithmetic, but
+    every row-split product sums its contraction axis in another order:
+    how far that moves an output is the floor of sum order, without a
+    mesh. Applied twice, the model comes back bit for bit."""
+    import torch
+    from video_depth_anything_torch.parallel.mesh import _plan, merge_shards, shard_tensor
+
+    sd = model.state_dict()
+    with torch.no_grad():
+        for keys in _plan(model, 2).values():
+            for key, (dim, groups) in keys.items():
+                t = sd[key]
+                t.copy_(merge_shards([shard_tensor(t, dim, groups, 2, r) for r in (1, 0)],
+                                     dim, groups))
+
+
+def check_local_kernels(gen, record):
+    """(p), the kernels at the model axis's local shapes (a model axis of
+    2): K1 at vitl's 8 local heads [32, 1370, 512] and vits' 3 [22, 1814,
+    192]; K3 at vitl's 8 (at vits' 3 it falls back to K1, (c')); K2 with 4
+    local heads at vitl's motion modules (C/2 = 512 at dh 128, 128 at dh
+    32) and vits' (96, 192, 32: dh 24, 48, 8), T = 32; bf16 and fp32, each
+    against its plain version, bf16 timed beside its bound and SDPA.
+    Returns {kernel: [entries]}."""
+    import torch
+    import torch.nn.functional as F
+    from video_depth_anything_torch.kernels import spatial_attention as k1
+    from video_depth_anything_torch.kernels import spatial_attention_qk8 as k3
+    from video_depth_anything_torch.kernels import temporal_attention as k2
+
+    out = {"spatial_attention": [], "spatial_attention_qk8": [], "temporal_attention": []}
+    scales = torch.tensor([1.6 / 127 / 8, 1.6 / 127], device="cuda")
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[1]
+        timed = name == "bfloat16"
+        for label, b, s, h in (("vitl local", 32, 1370, 8), ("vits local", 22, 1814, 3)):
+            c = h * 64
+            qkv = torch.randn(b, s, 3 * c, device="cuda", generator=gen).to(dt)
+            q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+            got = k1.spatial_attention(q, k, v, num_heads=h, scale=0.125)
+            ref = k1.spatial_attention_plain(q, k, v, num_heads=h, scale=0.125)
+            torch.cuda.synchronize()
+            err, ok, said = held("spatial_attention", name, got, ref)
+            line = f"(p) K1 {name:8s} {label} [{b},{s},{c}] H={h}: {said}"
+            if not ok:
+                raise AssertionError(line)
+            record("spatial_attention", name, err)
+            if timed:
+                heads = [t.unflatten(-1, (h, 64)).transpose(1, 2) for t in (q, k, v)]
+                e = dict(shape=[b, s, c], heads=h, dtype=name,
+                         ms=time_ms(lambda: k1.spatial_attention(q, k, v, num_heads=h, scale=0.125), 20),
+                         plain_ms=time_ms(lambda: k1.spatial_attention_plain(
+                             q, k, v, num_heads=h, scale=0.125), 3, 1),
+                         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                             *heads, scale=0.125), 20))
+                e["bound_ms"], e["bound_by"] = bound_ms(4 * b * h * s * s * 64,
+                                                        4 * b * s * c * q.element_size(), name)
+                out["spatial_attention"].append(e)
+                line += (f" kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.3f}, sdpa "
+                         f"{e['library_ms']:.4f}, bound {e['bound_ms']:.4f} ({e['bound_by']})")
+            print(line, flush=True)
+            if h % 2 == 0:
+                q8, k8 = (torch.randint(-127, 128, (b, s, c), device="cuda", generator=gen,
+                                        dtype=torch.int8) for _ in range(2))
+                got = k3.spatial_attention_qk8(q8, k8, v, scales, num_heads=h)
+                ref = k3.spatial_attention_qk8_plain(q8, k8, v, scales, num_heads=h)
+                torch.cuda.synchronize()
+                err, ok, said = held("spatial_attention_qk8", name, got, ref)
+                line = f"(p) K3 {name:8s} {label} [{b},{s},{c}] H={h}: {said}"
+                if not ok:
+                    raise AssertionError(line)
+                record("spatial_attention_qk8", name, err)
+                if timed:
+                    heads = [t.unflatten(-1, (h, 64)).transpose(1, 2) for t in
+                             (q8.to(dt) * scales[0].to(dt), k8.to(dt) * scales[1].to(dt), v)]
+                    e = dict(shape=[b, s, c], heads=h, dtype=name,
+                             ms=time_ms(lambda: k3.spatial_attention_qk8(
+                                 q8, k8, v, scales, num_heads=h), 20),
+                             plain_ms=time_ms(lambda: k3.spatial_attention_qk8_plain(
+                                 q8, k8, v, scales, num_heads=h), 3, 1),
+                             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                                 *heads, scale=1.0), 20))
+                    ops = 2 * b * h * s * s * 64
+                    e["bound_ms"], e["bound_by"] = bound_ms(
+                        ops * (1 + PEAK_OPS[name] / PEAK_OPS["int8"]),
+                        b * s * c * (2 + 2 * v.element_size()), name)
+                    out["spatial_attention_qk8"].append(e)
+                    line += (f" kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.3f}, sdpa "
+                             f"{e['library_ms']:.4f}, bound {e['bound_ms']:.4f} ({e['bound_by']})")
+                print(line, flush=True)
+                del q8, k8
+            del qkv, q, k, v, got, ref
+            torch.cuda.empty_cache()
+        for label, p, c in (("vitl local 0", 37 * 37, 512), ("vitl local 1", 19 * 19, 512),
+                            ("vitl local 2", 37 * 37, 128), ("vitl local 3", 74 * 74, 128),
+                            ("vits local 0", 37 * 49, 96), ("vits local 1", 19 * 25, 192),
+                            ("vits local 3", 74 * 98, 32)):
+            h, t = 4, 32
+            dh = c // h
+            q, k, v = (torch.randn(p, t, c, device="cuda", generator=gen).to(dt) for _ in range(3))
+            got = k2.temporal_attention(q, k, v, num_heads=h, scale=dh ** -0.5)
+            ref = k2.temporal_attention_plain(q, k, v, num_heads=h, scale=dh ** -0.5)
+            torch.cuda.synchronize()
+            err, ok, said = held("temporal_attention", name, got, ref)
+            line = f"(p) K2 {name:8s} {label} [{p},{t},{c}] H={h} dh={dh}: {said}"
+            if not ok:
+                raise AssertionError(line)
+            record("temporal_attention", name, err)
+            if timed:
+                heads = [x.unflatten(-1, (h, dh)).transpose(1, 2) for x in (q, k, v)]
+                e = dict(shape=[p, t, c], heads=h, dtype=name,
+                         ms=graph_ms(lambda: k2.temporal_attention(
+                             q, k, v, num_heads=h, scale=dh ** -0.5), 20),
+                         plain_ms=time_ms(lambda: k2.temporal_attention_plain(
+                             q, k, v, num_heads=h, scale=dh ** -0.5), 5, 1),
+                         library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                             *heads, scale=dh ** -0.5), 20))
+                e["bound_ms"], e["bound_by"] = bound_ms(4 * p * t * t * c,
+                                                        4 * p * t * c * q.element_size(), name)
+                out["temporal_attention"].append(e)
+                line += (f" kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f}, sdpa "
+                         f"{e['library_ms']:.4f}, bound {e['bound_ms']:.4f} ({e['bound_by']})")
+            print(line, flush=True)
+            del q, k, v, got, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def gloo_cuda_check(mesh, rank: int) -> dict:
+    """gloo's collectives on CUDA tensors, at (p)'s first call: broadcast,
+    all_reduce SUM in fp32 / bf16 / int32 and MAX, and all_gather over the
+    model group and over the data group of one rank, each checked; then
+    the time of a 200 MB bf16 all_reduce over the model group (the size
+    of one vitl encoder block's activations on 54 frames at 518x686)."""
+    import torch
+    import torch.distributed as dist
+
+    model, data = mesh.get_group("model"), mesh.get_group("data")
+    for dt in (torch.float32, torch.bfloat16, torch.int32):
+        x = torch.full((4,), rank + 1, dtype=dt, device="cuda")
+        dist.all_reduce(x, group=model)
+        if not bool((x == 3).all()):
+            raise AssertionError(f"gloo all_reduce {dt} on CUDA: {x}")
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=model)
+    y = torch.full((4,), float(rank + 1), device="cuda")
+    dist.broadcast(y, src=dist.get_global_rank(model, 1), group=model)
+    parts = [torch.empty(2, device="cuda") for _ in range(2)]
+    dist.all_gather(parts, torch.full((2,), float(rank), device="cuda"), group=model)
+    one = [torch.empty(2, device="cuda")]
+    dist.all_gather(one, torch.full((2,), float(rank), device="cuda"), group=data)
+    if not (bool((x == 2).all()) and bool((y == 2).all())
+            and [p.tolist() for p in parts] == [[0.0, 0.0], [1.0, 1.0]]
+            and one[0].tolist() == [float(rank)] * 2):
+        raise AssertionError(f"gloo on CUDA: max {x}, broadcast {y}, all_gather {parts}, {one}")
+    big = torch.ones(100_000_000, dtype=torch.bfloat16, device="cuda")
+    dist.all_reduce(big, group=model)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(3):
+        dist.all_reduce(big, group=model)
+    torch.cuda.synchronize()
+    return {"ops": "broadcast, all_reduce sum fp32/bf16/int32 and max, all_gather: ok",
+            "all_reduce_200MB_bf16_s": (time.perf_counter() - t) / 3}
+
+
+def model_axis_rank(rank: int, port: int, out: str) -> None:
+    """One rank of (p) (``chip_smoke.py --model-axis-rank R PORT DIR``): a
+    (1, 2) mesh over gloo on cuda:0; vitl at full width through the mesh
+    pipeline (bf16 at windows_per_batch 2 on (e)'s video, the reduced clip
+    in fp32, int8 calibrating and writing its side file), then three vits
+    train steps in bf16 and three in fp32; the launch counts around each
+    mesh call. Writes its depths, gathered heads and record under ``out``.
+    Any failure raises."""
+    import numpy as np
+    import torch
+    from video_depth_anything_torch import kernels
+    from video_depth_anything_torch.config import get_model_config
+    from video_depth_anything_torch.models import build_model
+    from video_depth_anything_torch.parallel import distributed as pdist
+    from video_depth_anything_torch.parallel import gather_params, make_mesh
+    from video_depth_anything_torch.pipeline import VideoDepthPipeline
+    from video_depth_anything_torch.tools import bench_train_step as bts
+    from video_depth_anything_torch.training import train_state as ts
+    from video_depth_anything_torch.utils.precision import synthetic_video
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pdist.initialize(f"127.0.0.1:{port}", 2, rank, device="cuda", backend="gloo")
+    mesh = make_mesh(1, 2)
+    rec = {"rank": rank, "launches": {}, "s": {}, "gloo": gloo_cuda_check(mesh, rank)}
+
+    def timed(key, fn):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        rec["s"][key] = time.perf_counter() - t
+        rec["launches"][key] = kernels.launch_counts()
+        return res
+
+    cfg = get_model_config("vitl")
+    frames = synthetic_video(n=MODEL_AXIS_FRAMES, hw=(480, 640), seed=3)
+    pipe = VideoDepthPipeline(cfg, build_model(cfg, seed=0, device="cuda"), mesh=mesh)
+    rec["local_heads"] = pipe.model.pretrained.blocks[0].attn.num_heads
+    rec["local_motion_heads"] = pipe.model.head.motion_modules[0].temporal_transformer \
+        .transformer_blocks[0].attention_blocks[0].num_heads
+    d, _ = timed("bf16", lambda: pipe.infer_video_depth(frames, windows_per_batch=2))
+    np.save(os.path.join(out, f"bf16_r{rank}.npy"), d)
+    small = synthetic_video(n=40, hw=(140, 196), seed=5)
+    d, _ = timed("fp32_reduced", lambda: pipe.infer_video_depth(
+        small, input_size=112, fp32=True, windows_per_batch=2))
+    np.save(os.path.join(out, f"fp32_r{rank}.npy"), d)
+    del pipe
+    torch.cuda.empty_cache()
+
+    q = VideoDepthPipeline(cfg, build_model(cfg, seed=0, device="cuda"), mesh=mesh, quant="int8",
+                           calib_path=os.path.join(out, "vitl.int8calib.npz"))
+    d, _ = timed("int8", lambda: q.infer_video_depth(frames, windows_per_batch=2))
+    np.save(os.path.join(out, f"int8_r{rank}.npy"), d)
+    del q
+    torch.cuda.empty_cache()
+
+    cfg20 = get_model_config("vits", num_frames=20)
+    batch = bts.synthetic_batch(1, 20, 518, "cuda", seed=3)
+    for dtype, key in (("bfloat16", "train_step"), ("float32", "train_step_fp32")):
+        tc = ts.TrainConfig(compute_dtype=dtype, clip_len=20)
+        state = ts.shard_train_state(
+            ts.create_train_state(bts.synthetic_model(cfg20, 0, device="cuda"), tc), mesh)
+        rec[key + "_losses"], rec[key + "_s"] = [], []
+        for _ in range(3):
+            state, m = timed(key, lambda: ts.train_step(state, batch, cfg20, tc))
+            rec[key + "_losses"].append(float(m["loss"]))
+            rec[key + "_s"].append(rec["s"][key])
+        head = {k: v.cpu().numpy() for k, v in gather_params(state.model, mesh).items()
+                if k.startswith("head.")}
+        np.savez(os.path.join(out, f"{key}_head_r{rank}.npz"), **head)
+        del state
+        torch.cuda.empty_cache()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    torch.distributed.destroy_process_group()
+
+
+def model_axis_path(cardname, gen, record):
+    """(p): the model axis on the card. The kernels at their local shapes
+    (``check_local_kernels``); then two ranks on cuda:0 over gloo
+    (``model_axis_rank``), held against the same runs without a mesh in
+    this process: vitl bf16 within the bf16 budget, the reduced clip in
+    fp32 at rtol = atol = 2e-4, int8 on the ranks' side file within twice
+    the flip floor, the ranks bit for bit with each other, K1 / K2 / K3
+    launched at their local head counts; three vits train steps in bf16
+    and in fp32, the ranks' losses and gathered heads bit for bit; the
+    loss at every step within 5e-4 relative of the step without a mesh in
+    fp32, and in bf16 within the larger of 5e-4 and bf16's own distance
+    from fp32 at that step without a mesh; the head after three steps, in
+    both dtypes, against the head trained without a mesh by HEAD_TOL, its
+    share off within the larger of HEAD_SHARE and twice the sum-order
+    floor's: the runs without a mesh against themselves with
+    ``swap_halves`` (also reported for the drift and the losses). Returns (record, the mesh calls' launch counts, the local
+    kernels' entries)."""
+    import socket
+
+    import numpy as np
+    import torch
+    from video_depth_anything_torch.config import get_model_config
+    from video_depth_anything_torch.models import build_model
+    from video_depth_anything_torch.pipeline import VideoDepthPipeline
+    from video_depth_anything_torch.pipeline.infer import scale_side_file
+    from video_depth_anything_torch.pipeline.windows import num_windows
+    from video_depth_anything_torch.tools import bench_train_step as bts
+    from video_depth_anything_torch.training import train_state as ts
+    from video_depth_anything_torch.utils.precision import (
+        MAX_ERR_FRAC, MEAN_ERR_FRAC, flip_floor_report, precision_drift_report, synthetic_video)
+
+    t0 = time.perf_counter()
+    local = check_local_kernels(gen, record)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="vda_tp_")
+    try:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+        logs = [os.path.join(tmp, f"rank{r}.log") for r in range(2)]
+        procs = []
+        t_spawn = time.perf_counter()
+        deadline = t_spawn + MODEL_AXIS_TIMEOUT_S
+        try:
+            for r in range(2):
+                with open(logs[r], "w") as log:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, os.path.abspath(__file__), "--model-axis-rank", str(r),
+                         str(port), tmp], stdout=log, stderr=subprocess.STDOUT, cwd=ROOT,
+                        env=env))
+            while any(p.poll() is None for p in procs) and time.perf_counter() < deadline:
+                if any(p.poll() not in (None, 0) for p in procs):
+                    break
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        ranks_s = time.perf_counter() - t_spawn
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                with open(logs[r]) as f:
+                    tail = f.read()[-6000:]
+                raise AssertionError(f"(p) rank {r} exited {p.returncode}:\n{tail}")
+        recs = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+        got = {key: [np.load(os.path.join(tmp, f"{key}_r{r}.npy")) for r in range(2)]
+               for key in ("bf16", "fp32", "int8")}
+        same = {key: bool(np.array_equal(*pair)) for key, pair in got.items()}
+        for key in ("train_step", "train_step_fp32"):
+            heads = [dict(np.load(os.path.join(tmp, f"{key}_head_r{r}.npz"))) for r in range(2)]
+            same[key + "_losses"] = recs[0][key + "_losses"] == recs[1][key + "_losses"]
+            same[key + "_heads"] = sorted(heads[0]) == sorted(heads[1]) and all(
+                np.array_equal(heads[0][k], heads[1][k]) for k in heads[0])
+
+        # The same runs without a mesh, in this process.
+        cfg = get_model_config("vitl")
+        frames = synthetic_video(n=MODEL_AXIS_FRAMES, hw=(480, 640), seed=3)
+        model = build_model(cfg, seed=0, device="cuda")
+        plain = VideoDepthPipeline(cfg, model)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ref16, _ = plain.infer_video_depth(frames, windows_per_batch=2)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+        small = synthetic_video(n=40, hw=(140, 196), seed=5)
+        ref32, _ = plain.infer_video_depth(small, input_size=112, fp32=True, windows_per_batch=2)
+        del plain
+        side = os.path.join(tmp, "vitl.int8calib.npz")
+        nudged = os.path.join(tmp, "nudged.npz")
+        scale_side_file(side, nudged, 1 + 1e-6)
+        ref8 = [VideoDepthPipeline(cfg, model, quant="int8", calib_path=path).infer_video_depth(
+            frames, windows_per_batch=2)[0] for path in (side, nudged)]
+        swap_halves(model)     # the sum-order floor: no mesh, halves swapped
+        order16, _ = VideoDepthPipeline(cfg, model).infer_video_depth(frames, windows_per_batch=2)
+        del model
+        torch.cuda.empty_cache()
+        cfg20 = get_model_config("vits", num_frames=20)
+        batch = bts.synthetic_batch(1, 20, 518, "cuda", seed=3)
+        ref_losses, loss_rel, head_err = {}, {}, {}
+        order_rel, order_head = {}, {}
+        for dtype, key in (("bfloat16", "train_step"), ("float32", "train_step_fp32")):
+            tc = ts.TrainConfig(compute_dtype=dtype, clip_len=20)
+            heads = []
+            for swapped in (False, True):
+                model = bts.synthetic_model(cfg20, 0, device="cuda")
+                if swapped:
+                    swap_halves(model)
+                state = ts.create_train_state(model, tc)
+                losses = []
+                for _ in range(3):
+                    state, m = ts.train_step(state, batch, cfg20, tc)
+                    losses.append(float(m["loss"]))
+                if swapped:
+                    swap_halves(state.model)
+                heads.append({k: v.cpu().numpy() for k, v in state.model.state_dict().items()
+                              if k.startswith("head.")})
+                if swapped:
+                    order_rel[key] = [abs(a - b) / max(abs(b), 1.0)
+                                      for a, b in zip(losses, ref_losses[key])]
+                else:
+                    ref_losses[key] = losses
+                del state, model
+                torch.cuda.empty_cache()
+            loss_rel[key] = [abs(a - b) / max(abs(b), 1.0) for a, b in
+                             zip(recs[0][key + "_losses"], ref_losses[key])]
+            mesh_head = dict(np.load(os.path.join(tmp, f"{key}_head_r0.npz")))
+            same[key + "_head_keys"] = sorted(mesh_head) == sorted(heads[0])
+            head_err[key] = head_errors(mesh_head, heads[0], tc.learning_rate)
+            order_head[key] = head_errors(heads[1], heads[0], tc.learning_rate)
+        # bf16's own distance from fp32, per step, without a mesh: the budget
+        # of a bf16 loss on the mesh where it exceeds 5e-4.
+        bf16_budget = [max(5e-4, abs(a - b) / max(abs(b), 1.0)) for a, b in
+                       zip(ref_losses["train_step"], ref_losses["train_step_fp32"])]
+
+        drift = precision_drift_report(got["bf16"][0], ref16)
+        order_drift = precision_drift_report(order16, ref16)
+        f32_err = float(np.abs(got["fp32"][0] - ref32).max())
+        f32_ok = bool(np.allclose(got["fp32"][0], ref32, rtol=2e-4, atol=2e-4))
+        flip = flip_floor_report(got["int8"][0], ref8[0], ref8[1])
+        same["int8_no_mesh"] = bool(np.array_equal(got["int8"][0], ref8[0]))
+        n_chunks = -(-num_windows(MODEL_AXIS_FRAMES) // 2)
+        launches = {k: recs[0]["launches"][k] for k in ("bf16", "int8", "train_step")}
+        zeros = {name: 0 for name in launches["bf16"]}
+        want = {"bf16": {**zeros, "spatial_attention": 24 * n_chunks,
+                         "temporal_attention": 8 * n_chunks},
+                "int8": {**zeros, "spatial_attention": 24, "spatial_attention_qk8": 24 * n_chunks,
+                         "temporal_attention": 8 * (n_chunks + 1)},
+                "train_step": {**zeros, "spatial_attention": 12, "temporal_attention": 8}}
+        rec = {"mesh": [1, 2], "backend": "gloo, CUDA tensors, two processes on cuda:0",
+               "gloo": recs[0]["gloo"],
+               "local_heads": {"encoder": recs[0]["local_heads"],
+                               "motion": recs[0]["local_motion_heads"]},
+               "ranks_equal_bit_for_bit": same,
+               "bf16_drift_vs_no_mesh": drift, "fp32_reduced_max_abs_err": f32_err,
+               "int8_flip_floor": {"got": flip["got"], "limit": flip["limit"]},
+               "train_losses_mesh": {k: recs[0][k + "_losses"] for k in ref_losses},
+               "train_losses_no_mesh": ref_losses, "train_loss_rel_err": loss_rel,
+               "train_loss_bf16_budget": bf16_budget, "head_after_3_steps": head_err,
+               "sum_order_floor": {"bf16_drift": order_drift, "train_loss_rel_err": order_rel,
+                                   "head_after_3_steps": order_head},
+               "s_mesh_two_processes_one_card": recs[0]["s"],
+               "train_s_mesh": {k: recs[0][k + "_s"] for k in ref_losses},
+               "s_bf16_no_mesh": plain_s, "ranks_wall_s": ranks_s, "launches": launches}
+        print(f"(p) gloo on CUDA tensors: {recs[0]['gloo']['ops']}; a 200 MB bf16 all_reduce "
+              f"{recs[0]['gloo']['all_reduce_200MB_bf16_s']:.4f} s (two processes, one card)",
+              flush=True)
+        print(f"(p) model axis (1, 2), gloo with CUDA tensors, two processes on one {cardname}: "
+              f"vitl {recs[0]['local_heads']} of 16 heads per rank, motion "
+              f"{recs[0]['local_motion_heads']} of 8; ranks bit for bit {same}; bf16 against no "
+              f"mesh: max {drift['max_err_frac']:.5f} / mean {drift['mean_err_frac']:.6f} "
+              f"(budget {MAX_ERR_FRAC} / {MEAN_ERR_FRAC}); reduced clip fp32 max abs err "
+              f"{f32_err:.3e} (rtol = atol = 2e-4); int8 {flip['got']['max_err_frac']:.5f} / "
+              f"{flip['got']['mean_err_frac']:.6f} / rel L2 {flip['got']['rel_l2']:.3e} against "
+              f"limits {flip['limit']}; train losses (bf16, fp32) {rec['train_losses_mesh']} "
+              f"against {ref_losses} (rel {loss_rel}; tol fp32 5e-4, bf16 {bf16_budget}); "
+              f"heads after three steps {head_err} (share off by > {HEAD_TOL} of the leaf's max "
+              f"held to the larger of {HEAD_SHARE} and twice the floor's); sum-order floor (no mesh, halves swapped): bf16 drift "
+              f"max {order_drift['max_err_frac']:.5f} / mean {order_drift['mean_err_frac']:.6f}, "
+              f"losses rel {order_rel}, heads {order_head}; "
+              f"launches per rank {launches}; wall s per call (two processes sharing the card) "
+              f"{recs[0]['s']}, bf16 without a mesh {plain_s:.2f} s; ranks {ranks_s:.1f} s; "
+              f"phase (p) {time.perf_counter() - t0:.1f} s", flush=True)
+        if not (all(v for k, v in same.items() if k != "int8_no_mesh")
+                and drift["max_err_frac"] < MAX_ERR_FRAC
+                and drift["mean_err_frac"] < MEAN_ERR_FRAC and f32_ok and flip["ok"]
+                and all(e <= b for e, b in zip(loss_rel["train_step"], bf16_budget))
+                and max(loss_rel["train_step_fp32"]) < 5e-4
+                and all(h["share_off"] <= max(HEAD_SHARE, 2 * order_head[k]["share_off"])
+                        for k, h in head_err.items())
+                and all(recs[0]["launches"][k] == want[k] for k in want)
+                and recs[0]["local_heads"] == 8 and recs[0]["local_motion_heads"] == 4):
+            raise AssertionError(f"(p) model axis: {rec}, launches wanted {want}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec, launches, local
+
+
 def bench_phase():
     """(j): the port's bench for vits at --iters 3 --warmup 1 (its main, in
     this process); its record is printed, and a section error fails."""
@@ -2111,6 +2629,7 @@ def main() -> int:
     launches_metric = metric_path(cardname)
     train_rec, k2_backward = training_path(cardname)
     mesh_rec, launches_mesh = distributed_path(cardname)
+    tp_rec, launches_tp, tp_local = model_axis_path(cardname, gen, record)
     timing(cardname)
     breakdown(cardname)
     breakdown(cardname, "int8")
@@ -2180,6 +2699,10 @@ def main() -> int:
             "launches_mesh_bf16": launches_mesh["bf16"][name],
             "launches_mesh_int8": launches_mesh["int8"][name],
             "launches_mesh_train_step": launches_mesh["train"][name],
+            "launches_model_axis_bf16": launches_tp["bf16"][name],
+            "launches_model_axis_int8": launches_tp["int8"][name],
+            "launches_model_axis_train_step": launches_tp["train_step"][name],
+            **({"model_axis_local_shapes": tp_local[name]} if name in tp_local else {}),
             "max_abs_err": max(errs[(name, "bfloat16")], fp32 or 0.0),
             "max_abs_err_bf16": errs[(name, "bfloat16")],
             "max_abs_err_fp32": fp32,
@@ -2197,7 +2720,7 @@ def main() -> int:
         })
     print("long video, bench and train step summary: " + json.dumps(
         {"long_video": long_timings, "bench": bench_record, "train_step": train_rec,
-         "distributed": mesh_rec}), flush=True)
+         "distributed": mesh_rec, "model_axis": tp_rec}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(cardname, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2207,4 +2730,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--model-axis-rank"]:     # one rank of (p), started by main
+        model_axis_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

@@ -301,7 +301,7 @@ print("HAS", all(pkg.__name__ + "." + m in sys.modules for m in (
     "training.checkpoint", "training.validate", "training.visualize", "data.vkitti",
     "data.landmarks", "data.loader", "benchmark.metrics", "benchmark.tae",
     "benchmark.evaluate", "benchmark.manifests", "benchmark.extract", "benchmark.infer",
-    "tools.bench_train_step", "parallel.mesh", "parallel.distributed", "app",
+    "tools.bench_train_step", "parallel.mesh", "parallel.distributed", "parallel.tensor", "app",
     "tools.convert_checkpoint", "tools.export_checkpoint", "tools.validate_checkpoint")))
 print("LIBS", sorted(m for m in ("yaml", "PIL", "cv2") if m in sys.modules))
 """

@@ -529,9 +529,12 @@ def test_untiled_train_batch_refused_before_any_step(ranks):
 
 
 def test_model_axis_refused_with_the_roadmap_item(world1):
+    """The model axis is ported (tests/test_torch_tensor_parallel.py): on
+    one rank a model axis of 2 is refused for want of ranks, as any mesh
+    larger than the group is."""
     from video_depth_anything_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, the tensor-parallel item"):
+    with pytest.raises(ValueError, match="a mesh of 1 x 2 needs 2 ranks"):
         make_mesh(n_model=2)
     assert world1.mesh_dim_names == ("data", "model") and tuple(world1.shape) == (1, 1)
     with pytest.raises(ValueError, match="needs 2 ranks"):

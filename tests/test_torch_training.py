@@ -610,18 +610,38 @@ def test_driver_patience_and_cosine_horizon(vkitti_root, tmp_path, monkeypatch, 
     assert n > 0 and seen["tc"].steps_per_epoch == n and seen["tc"].epochs == 6
 
 
-def test_driver_refuses_distributed():
-    """Data parallelism is ported (tests/test_torch_parallel.py); a mesh
-    with a model axis (tensor parallelism) is refused before anything runs,
-    naming the ROADMAP item."""
+def test_driver_refuses_distributed(vkitti_root, tmp_path, monkeypatch):
+    """Neither data parallelism (tests/test_torch_parallel.py) nor the
+    model axis (tests/test_torch_tensor_parallel.py) is refused any more.
+    On a (1, 2) mesh, global rank 1 sits at data index 0: train() cuts
+    the training set by the data axis (one shard, its index 0), not by the
+    global rank (two shards, index 1), so both ranks of the model group
+    load the same rows."""
     import types
 
+    import torch.distributed as dist
+
+    from video_depth_anything_torch import data
     from video_depth_anything_torch.training.train import train
 
-    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"), size=lambda d: (1, 2)[d])
-    for kw in ({"mesh": mesh}, {"mesh": mesh, "distributed": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, the tensor-parallel"):
-            train(**kw)
+    class Stop(Exception):
+        pass
+
+    seen = []
+
+    def loader(dataset, **kw):
+        seen.append(kw)
+        raise Stop
+
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"), size=lambda d: (1, 2)[d],
+                                 get_local_rank=lambda name: {"data": 0, "model": 1}[name],
+                                 device_type="cpu")
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: 1)
+    monkeypatch.setattr(data, "DataLoader", loader)
+    with pytest.raises(Stop):
+        train(_driver_yaml(tmp_path / "dp.yaml", 1), data_root=vkitti_root,
+              mesh=mesh, model_cfg=DRIVER_CFG, resize_size=28, device="cpu")
+    assert seen == [{"batch_size": 1, "shuffle": True, "num_shards": 1, "shard_id": 0}]
 
 
 def test_state_from_a_moved_trained_model(params):

@@ -14,6 +14,14 @@ and fc2 (SwiGLU: w12 and w3) become ``QLinear`` sites, and q and k are
 re-quantized for kernel K3 (``kernels/spatial_attention_qk8.py``), which
 reads v in place. A ``stats`` dict passed down the forward collects the
 calibration absmaxes (``calibrate``).
+
+On the mesh's model axis (``parallel/mesh.py::split_params``) an
+attention or FFN block holds its rank's shard and ``tp``, its
+``ModelAxis``: the attention runs its local heads (q, k and v of those
+heads are its qkv shard's three parts), the FFN its part of the hidden;
+the row-split product (proj, fc2, w3) is summed over the group in fp32
+before its bias is added and it is rounded, once. The absmaxes of split activations are a MAX over the
+group.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from ..kernels.spatial_attention_qk8 import spatial_attention_qk8
 from ..ops import nn as vnn
 from ..ops import quant
 from ..ops.resize import device_matrix
+from ..parallel.tensor import copy_to_model, max_over_model
 
 
 def interpolate_pos_encoding(pos_embed: torch.Tensor, ph: int, pw: int,
@@ -62,7 +71,8 @@ class PatchEmbed(nn.Module):
 class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads = num_heads     # this rank's heads once split
+        self.tp = None                 # the ModelAxis once split
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         # Static absmaxes of the q and k projection outputs (int8 mode only).
@@ -70,12 +80,14 @@ class Attention(nn.Module):
         self.register_buffer("k_amax", None)
 
     def forward(self, x: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
-        d = x.shape[-1]
+        x = copy_to_model(x, self.tp)
+        qkv = quant.linear_maybe_q(self.qkv, x)  # [N, S, 3D] (split: this rank's heads)
+        d = qkv.shape[-1] // 3
         dh = d // self.num_heads
-        qkv = quant.linear_maybe_q(self.qkv, x)  # [N, S, 3D]
         q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
         if stats is not None:
-            stats["q_out"], stats["k_out"] = quant.amax(q), quant.amax(k)
+            stats["q_out"] = max_over_model(quant.amax(q), self.tp)
+            stats["k_out"] = max_over_model(quant.amax(k), self.tp)
         if self.q_amax is not None:
             scales = torch.stack([self.q_amax.float() * (dh ** -0.5 / 127.0),
                                   self.k_amax.float() / 127.0])
@@ -85,21 +97,22 @@ class Attention(nn.Module):
         else:
             o = spatial_attention(q, k, v, num_heads=self.num_heads, scale=dh ** -0.5)
         if stats is not None:
-            stats["proj"] = quant.amax(o)
-        return quant.linear_maybe_q(self.proj, o)
+            stats["proj"] = max_over_model(quant.amax(o), self.tp)
+        return quant.linear_maybe_q(self.proj, o, tp=self.tp)
 
 
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
+        self.tp = None
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
-        h = vnn.gelu(quant.linear_maybe_q(self.fc1, x))
+        h = vnn.gelu(quant.linear_maybe_q(self.fc1, copy_to_model(x, self.tp)))
         if stats is not None:
-            stats["fc2"] = quant.amax(h)
-        return quant.linear_maybe_q(self.fc2, h)
+            stats["fc2"] = max_over_model(quant.amax(h), self.tp)
+        return quant.linear_maybe_q(self.fc2, h, tp=self.tp)
 
 
 def swiglu_hidden(dim: int, mlp_ratio: float) -> int:
@@ -115,15 +128,16 @@ class SwiGLUFFNFused(nn.Module):
 
     def __init__(self, dim: int, hidden: int):
         super().__init__()
+        self.tp = None
         self.w12 = nn.Linear(dim, 2 * hidden)
         self.w3 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
-        x1, x2 = quant.linear_maybe_q(self.w12, x).chunk(2, dim=-1)
+        x1, x2 = quant.linear_maybe_q(self.w12, copy_to_model(x, self.tp)).chunk(2, dim=-1)
         h = F.silu(x1) * x2
         if stats is not None:   # the w3 input's absmax, in the "fc2" slot
-            stats["fc2"] = quant.amax(h)
-        return quant.linear_maybe_q(self.w3, h)
+            stats["fc2"] = max_over_model(quant.amax(h), self.tp)
+        return quant.linear_maybe_q(self.w3, h, tp=self.tp)
 
 
 class LayerScale(nn.Module):

@@ -12,6 +12,14 @@ int8 mode (``ops/quant.py::quantize_motion_module``): every linear becomes
 a ``QLinear``; to_q, to_k and to_v share one quantized input, and K2 runs
 on their dequantized outputs. A ``stats`` dict passed to ``forward``
 collects the calibration absmaxes, in the JAX package's tree.
+
+On the mesh's model axis (``parallel/mesh.py::split_params``) an
+attention block holds q, k and v of its rank's heads (K2 runs at the
+local head count; the scale keeps the head dim) and the rows of the RoPE
+table that rotate its channels; the APE is added before the projections
+and stays whole. The GEGLU holds its rank's part of val and of gate. The
+row-split products (to_out.0, ff.net.2) are summed over the group in
+fp32 before their bias is added and they are rounded, once.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ from torch import nn
 from ..kernels.temporal_attention import temporal_attention
 from ..ops import nn as vnn
 from ..ops import quant
+from ..parallel.tensor import copy_to_model, max_over_model
 
 
 def sinusoidal_pe(d_model: int, max_len: int) -> np.ndarray:
@@ -51,15 +60,17 @@ class RotaryEmbedding(nn.Module):
     Not a checkpoint tensor (non-persistent), and fp32 whatever dtype the
     model is cast to: the JAX package keeps its complex64 table when it
     casts the parameters, so a cast rebuilds the table instead of rounding
-    it."""
+    it. On a model axis ``pairs`` is the [lo, hi) range of channel pairs
+    this rank's heads hold, and the table keeps those rows."""
 
     def __init__(self, dim: int, max_len: int):
         super().__init__()
         self.dim, self.max_len = dim, max_len
+        self.pairs = (0, dim // 2)
         self.register_buffer("freqs", self._table(None), persistent=False)
 
     def _table(self, device) -> torch.Tensor:
-        f = rope_freqs_cis(self.dim, self.max_len)
+        f = rope_freqs_cis(self.dim, self.max_len)[:, self.pairs[0]:self.pairs[1]]
         return torch.tensor(np.stack([f.real, f.imag], axis=-1), device=device)
 
     def _apply(self, fn, recurse=True):
@@ -89,7 +100,8 @@ class PositionalEncoding(nn.Module):
 class TemporalAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, max_len: int, pe: str = "ape"):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads = num_heads     # this rank's heads once split
+        self.tp = None                 # the ModelAxis once split
         self.to_q = nn.Linear(dim, dim, bias=False)
         self.to_k = nn.Linear(dim, dim, bias=False)
         self.to_v = nn.Linear(dim, dim, bias=False)
@@ -104,11 +116,12 @@ class TemporalAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
         """x: [P, T, C] -> [P, T, C]."""
-        t, c = x.shape[1], x.shape[2]
+        t = x.shape[1]
         if self.pe == "ape":
             x = x + self.pos_encoder.pe[:, :t].to(x.dtype)
         if stats is not None:
             stats["qkv"] = quant.amax(x)
+        x = copy_to_model(x, self.tp)
         x_i8 = None
         if isinstance(self.to_q, quant.QLinear):
             x_i8 = quant.quant_act(x, self.to_q.amax)
@@ -116,10 +129,10 @@ class TemporalAttention(nn.Module):
         if self.pe == "rope":
             q, k = self.rope(q), self.rope(k)
         o = temporal_attention(q, k, v, num_heads=self.num_heads,
-                               scale=(c // self.num_heads) ** -0.5)
+                               scale=(q.shape[-1] // self.num_heads) ** -0.5)
         if stats is not None:
-            stats["out"] = quant.amax(o)
-        return quant.linear_maybe_q(self.to_out[0], o)
+            stats["out"] = max_over_model(quant.amax(o), self.tp)
+        return quant.linear_maybe_q(self.to_out[0], o, tp=self.tp)
 
 
 class GEGLU(nn.Module):
@@ -133,17 +146,19 @@ class FeedForward(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
+        self.tp = None
         self.net = nn.ModuleList([GEGLU(dim, 4 * dim), nn.Dropout(0.0),
                                   nn.Linear(4 * dim, dim)])
 
     def forward(self, x: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
         if stats is not None:
             stats["ff_proj"] = quant.amax(x)
+        x = copy_to_model(x, self.tp)
         val, gate = quant.linear_maybe_q(self.net[0].proj, x).chunk(2, dim=-1)
         h = val * vnn.gelu(gate)
         if stats is not None:
-            stats["ff_g"] = quant.amax(h)
-        return quant.linear_maybe_q(self.net[2], h)
+            stats["ff_g"] = max_over_model(quant.amax(h), self.tp)
+        return quant.linear_maybe_q(self.net[2], h, tp=self.tp)
 
 
 class TemporalTransformerBlock(nn.Module):

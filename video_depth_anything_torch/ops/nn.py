@@ -18,6 +18,39 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
                     None if bias is None else bias.to(x.dtype))
 
 
+class _LinearF32(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.is_cuda:
+            y = torch.mm(x2, w.t(), out_dtype=torch.float32)
+        else:
+            y = torch.mm(x2.float(), w.t().float())
+        return y.view(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gx = g @ w if ctx.needs_input_grad[0] else None
+        gw = (g.reshape(-1, g.shape[-1]).t() @ x.reshape(-1, x.shape[-1])
+              if ctx.needs_input_grad[1] else None)
+        return gx, gw
+
+
+def linear_f32(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ weight [N, K]^T in x's dtype with an fp32 output: the
+    products of a bf16 GEMM, accumulated in fp32 and left unrounded (a
+    partial sum that is added to others before it is rounded once). The
+    backward is the bf16 linear's: the fp32 gradient is rounded to x's
+    dtype first."""
+    weight = weight.to(x.dtype)
+    if x.dtype == torch.float32:
+        return F.linear(x, weight)
+    return _LinearF32.apply(x, weight)
+
+
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm over the last axis with fp32 statistics.

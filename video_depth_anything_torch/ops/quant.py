@@ -27,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.tensor import reduce_from_model
 from . import nn as vnn
 
 # Activation-quantization sites per encoder block, in forward order. "qkv"
@@ -65,18 +66,21 @@ def _check_int_mm(m: int, k: int, n: int, device: torch.device) -> None:
 
 def qlinear(x_i8: torch.Tensor, w_i8: torch.Tensor, ws: torch.Tensor,
             amax: torch.Tensor, bias: torch.Tensor | None,
-            out_dtype: torch.dtype) -> torch.Tensor:
+            out_dtype: torch.dtype, tp=None) -> torch.Tensor:
     """int8 x_i8 [..., K] @ w_i8 [N, K]^T -> dequantized [..., N] out_dtype.
 
     int32 accumulation, then the fp32 rescale by the per-column weight
     scale times the per-tensor activation scale, the cast, and only then
-    the bias add in out_dtype (the JAX package's order).
+    the bias add in out_dtype (the JAX package's order). ``tp``: the
+    ``ModelAxis`` of a row-split site (K cut over the model group): the
+    ranks' int32 partial sums are summed over the group before the
+    rescale, exactly, so the site computes the unsplit site's bits.
     """
     n, k = w_i8.shape
     lead = x_i8.shape[:-1]
     x2 = x_i8.reshape(-1, k)
     _check_int_mm(x2.shape[0], k, n, x2.device)
-    y = torch._int_mm(x2.contiguous(), w_i8.t())
+    y = reduce_from_model(torch._int_mm(x2.contiguous(), w_i8.t()), tp)
     scale = ws.float() * (amax.float() / 127.0)
     y = torch.mul(y, scale).to(out_dtype)   # int32 * fp32, in fp32: one pass
     if bias is not None:
@@ -111,14 +115,25 @@ class QLinear(nn.Module):
         return qlinear(x_i8, self.w_i8, self.ws, self.amax, self.bias, x.dtype)
 
 
-def linear_maybe_q(m: nn.Module, x: torch.Tensor,
-                   x_i8: torch.Tensor | None = None) -> torch.Tensor:
+def linear_maybe_q(m: nn.Module, x: torch.Tensor, x_i8: torch.Tensor | None = None,
+                   tp=None) -> torch.Tensor:
     """``vnn.linear`` through ``m``, or its int8 product when ``m`` is a
     QLinear. x_i8: an already-quantized input shared between sites (one
-    LN output feeding to_q, to_k and to_v is quantized once)."""
+    LN output feeding to_q, to_k and to_v is quantized once). ``tp``: the
+    ``ModelAxis`` of a row-split site (its input and weight cut on the
+    contraction axis): each rank's product, left in fp32, is summed over
+    the model group in fp32, the bias is added, once, and the result is
+    rounded to x's dtype, once, as the unsplit product is; under int8 the
+    sum is of the int32 partial sums (``qlinear``)."""
     if isinstance(m, QLinear):
-        return m(x, x_i8)
-    return vnn.linear(x, m.weight, m.bias)
+        if tp is None:
+            return m(x, x_i8)
+        x_i8 = quant_act(x, m.amax) if x_i8 is None else x_i8
+        return qlinear(x_i8, m.w_i8, m.ws, m.amax, m.bias, x.dtype, tp)
+    if tp is None:
+        return vnn.linear(x, m.weight, m.bias)
+    y = reduce_from_model(vnn.linear_f32(x, m.weight), tp)
+    return (y if m.bias is None else y + m.bias.to(x.dtype)).to(x.dtype)
 
 
 def _f32(v) -> torch.Tensor:

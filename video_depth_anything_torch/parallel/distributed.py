@@ -6,8 +6,13 @@ package's ``parallel/distributed.py``).
   are set (the counterpart of JAX's TPU cluster auto-discovery), and
   otherwise not at all (one process). The backend is NCCL on the card and
   gloo when the caller asks for the CPU; neither falls back to the other.
-- ``global_mesh()`` is one ``("data", "model")`` mesh over every rank.
-- ``process_batch_bounds()`` is this rank's rows of a global batch.
+  ``backend="gloo"`` on the card runs gloo's collectives on CUDA tensors,
+  which lets several ranks share one card.
+- ``global_mesh(n_model)`` is one ``("data", "model")`` mesh over every
+  rank.
+- ``process_batch_bounds()`` is this rank's rows of a global batch: by its
+  index on the mesh's data axis, so the ranks of one model group take the
+  same rows.
 
 Not copied: JAX's ``host_local_batch_to_global`` and
 ``host_replicated_to_global`` assemble global arrays from each host's
@@ -16,7 +21,7 @@ leaves to its compiler are explicit where they are needed (the pipeline's
 all_gather, the train step's gradient all_reduce).
 
 NCCL takes one card per rank. A machine with one card therefore runs the
-NCCL path at world size 1; more ranks run there only on gloo, on the CPU.
+NCCL path at world size 1; more ranks share it only on gloo.
 """
 from __future__ import annotations
 
@@ -25,14 +30,34 @@ import os
 import torch
 import torch.distributed as dist
 
-from .mesh import make_mesh
+from .mesh import data_rank, data_size, make_mesh
+
+
+# The device kind ``initialize`` placed the process group on, with the
+# group it was chosen for (a group joined later, without ``initialize``,
+# does not inherit it).
+_placed: tuple = (None, None)
+
+
+def group_device_type() -> str:
+    """The device type of the process group's collectives: the one
+    ``initialize`` chose (``cuda`` for NCCL and for gloo with
+    ``device="cuda"``, ``cpu`` for gloo on the CPU); for a group joined
+    without it, ``cuda`` under NCCL and ``cpu`` otherwise."""
+    group, kind = _placed
+    if group is not None and group is dist.group.WORLD:
+        return kind
+    return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
 def initialize(coordinator_address: str | None = None, num_processes: int | None = None,
-               process_id: int | None = None, device=None) -> None:
+               process_id: int | None = None, device=None, backend: str | None = None) -> None:
     """Join the process group; idempotent. ``coordinator_address`` is
     ``host:port``. ``device``: ``cuda`` (the default, NCCL) or ``cpu``
-    (gloo). With no arguments and no torchrun environment, a no-op."""
+    (gloo). ``backend="gloo"`` with ``cuda``: gloo on CUDA tensors, the
+    card chosen as NCCL's would be (``make_mesh`` then makes a CUDA mesh).
+    With no arguments and no torchrun environment, a no-op."""
+    global _placed
     if dist.is_initialized():
         return
     if coordinator_address is None and num_processes is None:
@@ -49,28 +74,37 @@ def initialize(coordinator_address: str | None = None, num_processes: int | None
     if kind == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("NCCL needs a CUDA device; pass device='cpu' for gloo")
-        backend = "nccl"
+        backend = backend or "nccl"
     elif kind == "cpu":
-        backend = "gloo"
+        backend = backend or "gloo"
     else:
         raise ValueError(f"device {device!r}: the process group runs on cuda or cpu")
+    if (kind, backend) not in (("cuda", "nccl"), ("cuda", "gloo"), ("cpu", "gloo")):
+        raise ValueError(f"backend {backend!r} does not run on {kind}")
     dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank)
-    if backend == "nccl":
+    _placed = (dist.group.WORLD, kind)
+    if kind == "cuda":
         # This rank's card, chosen here once: every later placement
         # (mesh_device, the kernels' current stream) reads the current device.
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK",
                                                  dist.get_rank() % torch.cuda.device_count())))
 
 
-def global_mesh():
+def global_mesh(n_model: int = 1):
     """The ``("data", "model")`` mesh over every rank of the process group,
-    on the group's device (``cuda`` under NCCL, ``cpu`` under gloo)."""
-    return make_mesh()
+    ``n_model`` wide on the model axis, on the group's device."""
+    return make_mesh(n_model=n_model)
 
 
-def process_batch_bounds(global_batch: int) -> tuple[int, int]:
-    """[start, stop) rows of the global batch owned by this rank."""
-    n = dist.get_world_size() if dist.is_initialized() else 1
+def process_batch_bounds(global_batch: int, mesh=None) -> tuple[int, int]:
+    """[start, stop) rows of the global batch owned by this rank: by its
+    index on ``mesh``'s data axis (every rank of a model group gets the
+    same rows); without a mesh, by its rank in the process group."""
+    if mesh is not None:
+        n, p = data_size(mesh), data_rank(mesh)
+    else:
+        n = dist.get_world_size() if dist.is_initialized() else 1
+        p = dist.get_rank() if dist.is_initialized() else 0
     if global_batch % n != 0:
         raise ValueError(
             f"multi-host feeding needs the global batch (= mesh data-axis "
@@ -78,5 +112,4 @@ def process_batch_bounds(global_batch: int) -> tuple[int, int]:
             f"({n}); use a mesh with data >= {n} processes x its per-chip "
             f"batch, or run single-host")
     per = global_batch // n
-    p = dist.get_rank() if dist.is_initialized() else 0
     return p * per, (p + 1) * per

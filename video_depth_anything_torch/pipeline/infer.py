@@ -62,9 +62,12 @@ matches.
 
 ``mesh=`` (``parallel/mesh.py``, one device per rank) serves one video over
 the ranks of a process group, in JAX's order of operations: every rank
-holds the whole video and rank 0's weights; C is rounded up to a multiple
-of the data axis and the batched cache is used even at C = 1 (never the
-sequential one). Each rank uploads only its rows of a chunk
+holds the whole video and rank 0's weights, split over the mesh's model
+axis when it is wider than 1 (each rank its heads and its part of the MLP
+hidden); C is rounded up to a multiple of the data axis and the batched
+cache is used even at C = 1 (never the sequential one). The ranks of one
+model group take the same rows and return the same depths, bit for bit.
+Each rank uploads only its rows of a chunk
 (``DataAxis``): under the batched cache its share of the new frames to
 encode, whose features are all-gathered so every rank holds the resident
 table, then its share of the windows for the head; in plain mode its
@@ -73,7 +76,10 @@ every rank stitches the same windows and returns the full array. Rows are
 padded with the last one to a multiple of the axis (``all_gather`` takes
 equal sizes) and the padding is dropped after each gather. With int8
 every rank calibrates on the same first window and only rank 0 writes the
-side file. Streaming runs on a mesh of one rank only.
+side file; on a model axis the int8 model is gathered whole
+(``parallel.gather_model``), quantized (the per-channel scales of a
+row-split weight span its whole contraction axis) and then split, and the calibration's absmaxes of split activations are a
+MAX over the model group. Streaming runs on a mesh of one rank only.
 """
 from __future__ import annotations
 
@@ -94,7 +100,8 @@ from ..config import FRAME_STEP, INFER_LEN, KEYFRAMES, OVERLAP, ModelConfig
 from ..ops import quant as quant_ops
 from ..ops.resize import resize_bilinear_align_corners
 from ..parallel.distributed import process_batch_bounds
-from ..parallel.mesh import data_size, mesh_device, require_data_only, shard_params
+from ..parallel.mesh import (data_size, gather_model, mesh_device, model_axis, shard_params,
+                             split_params)
 from ..utils.profiling import WindowTimer
 from ..utils.tree import flatten_tree, unflatten_tree
 from . import preprocess, stitch, windows
@@ -208,6 +215,7 @@ class DataAxis:
     produced ``t`` and before the ops that read the result."""
 
     def __init__(self, mesh):
+        self.mesh = mesh
         self.group = mesh.get_group("data")
         self.size = data_size(mesh)
         self.timer: WindowTimer | None = None
@@ -218,7 +226,7 @@ class DataAxis:
         if not groups:
             return rows
         pad = -groups % self.size
-        lo, hi = process_batch_bounds(groups + pad)
+        lo, hi = process_batch_bounds(groups + pad, self.mesh)
         if pad and isinstance(rows, torch.Tensor):
             rows = torch.cat([rows, rows[-unit:].repeat(pad, *([1] * (rows.dim() - 1)))])
         elif pad:
@@ -520,10 +528,11 @@ class VideoDepthPipeline:
     def __init__(self, cfg: ModelConfig, model: torch.nn.Module, device=None,
                  quant: str | None = None, calib_path: str | None = None,
                  transfer_fp16: bool = False, mesh=None):
-        """``mesh``: a data-parallel ``DeviceMesh`` (``parallel/mesh.py``);
-        the device is then this rank's (``parallel.mesh_device``)
-        unless ``device`` names one, and ``model`` is overwritten in place
-        with rank 0's weights."""
+        """``mesh``: a ``DeviceMesh`` (``parallel/mesh.py``); the device is
+        then this rank's (``parallel.mesh_device``) unless ``device`` names
+        one, and ``model`` is overwritten in place with rank 0's weights
+        and, on a model axis wider than 1, split in place to this rank's
+        shard (``parallel.shard_params``)."""
         if quant not in (None, "int8"):
             raise ValueError(f"quant={quant!r}; the pipeline takes None or 'int8'")
         self.cfg = cfg
@@ -533,8 +542,8 @@ class VideoDepthPipeline:
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval().requires_grad_(False)
         self.axis = None
+        self.tp = model_axis(mesh)
         if mesh is not None:
-            require_data_only(mesh)
             shard_params(self.model, mesh)
             self.axis = DataAxis(mesh)
         self.quant = quant
@@ -573,7 +582,11 @@ class VideoDepthPipeline:
         if key not in self._int8:
             model = self.model_in(dtype)
             stats = self._calib_stats(model, calib_win, net_hw, dtype)
-            self._int8[key] = quant_ops.quantize_model(model, stats)
+            if self.tp is None:
+                self._int8[key] = quant_ops.quantize_model(model, stats)
+            else:   # gathered whole, quantized, split; the whole copies dropped
+                whole = quant_ops.quantize_model(gather_model(model, self.mesh), stats)
+                self._int8[key] = split_params(whole, self.tp)
         return self._int8[key]
 
     def _upload(self, frames: np.ndarray) -> torch.Tensor:

@@ -13,14 +13,19 @@ def _path(directory: str, name: str) -> str:
     return os.path.join(os.path.abspath(directory), name)
 
 
-def save_checkpoint(directory: str, name: str, state, extra: dict) -> str:
+def save_checkpoint(directory: str, name: str, state, extra: dict, write: bool = True) -> str:
     """Save a TrainState (step, every model tensor, AdamW's state) and the
-    counters ``extra`` (epoch / best_val_loss / trial) -> the path."""
+    counters ``extra`` (epoch / best_val_loss / trial) -> the path. On a
+    model axis the state's tensors are gathered whole (``state_dict()``,
+    a collective): every rank calls this, and only the one given
+    ``write=True`` writes."""
     path = _path(directory, name)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = path + ".tmp"
-    torch.save({**state.state_dict(), "extra": dict(extra)}, tmp)
-    os.replace(tmp, path)
+    sd = state.state_dict()
+    if write:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save({**sd, "extra": dict(extra)}, tmp)
+        os.replace(tmp, path)
     return path
 
 

@@ -23,8 +23,16 @@ per rank, launched by torchrun:
 Each rank loads its shard of the training set (``batch_size`` rows a step;
 the global batch is N x that), the state is rank 0's
 (``train_state.shard_train_state``) and the head's gradients are averaged
-over the ranks; validation runs unsharded on every rank; rank 0 alone
-writes checkpoints, pictures and logs. NCCL on ``cuda``, gloo on ``cpu``.
+over the ranks; rank 0 alone writes checkpoints, pictures and logs. NCCL
+on ``cuda``, gloo on ``cpu``.
+
+``train(mesh=make_mesh(n_data, n_model))`` adds the model axis: the
+state is split over "model" (tensor parallelism), the shards of the
+training set follow the data axis (the ranks of a model group load the
+same rows), and a checkpoint holds the gathered whole tensors (every rank
+gathers, rank 0 writes), so it loads into a model without a mesh, and a
+checkpoint written without one resumes onto the axis. Validation runs on
+every rank over the same clips, on the split model.
 """
 from __future__ import annotations
 
@@ -61,8 +69,8 @@ def train(config_path: str = "configs/config.yaml", data_root: str = None,
     (``cuda`` unless the caller asks for the CPU; on a mesh, this rank's).
     ``distributed`` joins the process group (``parallel.distributed.
     initialize``: torchrun's environment, else one process) and trains on
-    its global mesh; ``mesh`` is a data-parallel mesh already made.
-    Returns the TrainState."""
+    its global mesh; ``mesh`` is a mesh already made (data and model
+    axes). Returns the TrainState."""
     import yaml
 
     import torch
@@ -71,22 +79,22 @@ def train(config_path: str = "configs/config.yaml", data_root: str = None,
     from ..config import get_model_config
     from ..data import CombinedDataset, DataLoader, VKITTIVideoDataset
     from ..models import build_model
-    from ..parallel import mesh_device, require_data_only
+    from ..parallel import data_rank, data_size, mesh_device
     from ..parallel import distributed as pdist
     from ..pipeline.infer import resolve_device
     from . import checkpoint as ckpt
     from . import train_state as ts
     from .validate import metric_val
 
-    if mesh is not None:
-        require_data_only(mesh)
     if distributed:
         pdist.initialize(device=device)
         if mesh is None and dist.is_initialized():
             mesh = pdist.global_mesh()
-    nproc = dist.get_world_size() if mesh is not None else 1
-    rank = dist.get_rank() if mesh is not None else 0
-    proc0 = rank == 0
+    # The training set is cut over the data axis: the ranks of one model
+    # group load the same rows.
+    nproc = data_size(mesh) if mesh is not None else 1
+    rank = data_rank(mesh) if mesh is not None else 0
+    proc0 = mesh is None or dist.get_rank() == 0
     device = resolve_device(device if device is not None or mesh is None else mesh_device(mesh))
     with open(config_path) as f:
         hp = yaml.safe_load(f)["hyper_parameter"]
@@ -96,8 +104,8 @@ def train(config_path: str = "configs/config.yaml", data_root: str = None,
     clip_len = cfg.num_frames
     batch_size = int(hp.get("batch_size", 1))
     # JAX checks here that the global batch divides over the data axis
-    # (its train.py:63-80). With one device per rank the data axis is the
-    # rank count, so nproc x batch_size always divides; nothing to check.
+    # (its train.py:63-80). With one device per rank the data axis is
+    # nproc wide, so nproc x batch_size always divides; nothing to check.
     patience = int(hp.get("patient", 5))
 
     train_ds = VKITTIVideoDataset(data_root, clip_len=clip_len, split="train",
@@ -189,10 +197,11 @@ def train(config_path: str = "configs/config.yaml", data_root: str = None,
         else:
             trial += 1
         extra = {"epoch": epoch, "best_val_loss": best_val, "trial": trial}
-        if proc0:
-            ckpt.save_checkpoint(out_dir, "latest_checkpoint", state, extra)
-            if improved:
-                ckpt.save_checkpoint(out_dir, "best_checkpoint", state, extra)
+        # Every rank gathers the state (a collective under a model axis);
+        # rank 0 writes it.
+        ckpt.save_checkpoint(out_dir, "latest_checkpoint", state, extra, write=proc0)
+        if improved:
+            ckpt.save_checkpoint(out_dir, "best_checkpoint", state, extra, write=proc0)
         if not improved and trial >= patience:
             print(f"early stop at epoch {epoch} (patience {patience})")
             break

@@ -40,6 +40,22 @@ is the loss of the global batch and the mean of their gradients its
 gradient. The head is not wrapped in DDP: it runs through
 ``functional_call`` on cast tensors, which DDP's module hooks do not see.
 BatchNorm never runs in train mode, so no batch statistic needs a sync.
+
+The model axis (a mesh wider than 1 on "model"): ``shard_train_state``
+broadcasts the whole state from rank 0, then keeps this rank's shard of
+every split tensor (``parallel.split_params``: the encoder's heads and
+MLP hidden, the motion modules' q / k / v and GEGLU hidden) and of
+AdamW's two moments with it, as JAX puts mu and nu on the head's
+shardings. The ranks of a model group take the same rows and see the same
+loss; a head tensor left whole gets its full gradient on every rank
+through the split blocks' ``copy_to_model``, so the gradient mean is over
+"data". Those whole tensors' gradients are then averaged over "model" as
+well: equal in exact arithmetic, they can differ in their last bits where
+a backward kernel sums with atomics (cuDNN's weight gradients), and the
+ranks must apply the same update or their copies drift apart.
+``state_dict()`` then gathers the whole state on every rank (a
+collective), so a checkpoint holds whole tensors and loads into a model
+without a mesh.
 """
 from __future__ import annotations
 
@@ -98,6 +114,7 @@ class TrainState:
         self.dtype = _DTYPES[tc.compute_dtype]
         self.step = 0
         self.mesh = None      # set by shard_train_state
+        self.split = None     # on a model axis: the names of the split head tensors
         model.requires_grad_(False)
         for m in model.head.modules():   # a buffer moved while it required grad is no leaf
             for k, b in m._buffers.items():
@@ -125,12 +142,30 @@ class TrainState:
                 self.model.head.state_dict(keep_vars=True).items() if t.is_floating_point()}
 
     def state_dict(self) -> dict:
-        return {"step": self.step, "params": self.model.state_dict(),
-                "opt_state": self.opt.state_dict()}
+        """step, the model's whole tensors and AdamW's state. On a model
+        axis the split tensors and moments are gathered: every rank of the
+        mesh must call it."""
+        from ..parallel import gather_params, model_axis
+        from ..parallel.mesh import gather_shard
+
+        axis = model_axis(self.mesh)
+        opt = self.opt.state_dict()
+        if axis is None:
+            return {"step": self.step, "params": self.model.state_dict(), "opt_state": opt}
+        specs = _head_specs(self)
+        for i, name in enumerate(self.head):
+            if name in specs and i in opt["state"]:
+                opt["state"][i] = {k: gather_shard(v, *specs[name], axis) if k in _MOMENTS
+                                   else v for k, v in opt["state"][i].items()}
+        return {"step": self.step, "params": gather_params(self.model, self.mesh),
+                "opt_state": opt}
 
     def load_state_dict(self, sd: dict) -> None:
         """Restore a ``state_dict`` (the tensors are copied into this
-        state's own, so the optimizer keeps hold of them)."""
+        state's own, so the optimizer keeps hold of them). Whole tensors
+        only: restore before ``shard_train_state``."""
+        if self.split:
+            raise ValueError("restore the whole state first, then shard_train_state")
         self.model.load_state_dict(sd["params"], strict=True)
         self.opt.load_state_dict(sd["opt_state"])
         self.step = int(sd["step"])
@@ -142,34 +177,58 @@ def create_train_state(model, tc: TrainConfig) -> TrainState:
     return TrainState(model, tc)
 
 
-def shard_train_state(state: TrainState, mesh) -> TrainState:
-    """Replicate ``state`` over ``mesh``'s data axis, in place: the model
-    (fp32 master head with its BatchNorm statistics, frozen encoder),
-    AdamW's moments and step counters, and the step, all rank 0's. Run it
-    at creation and after a resume; train_step then averages gradients
-    over the mesh."""
-    from ..parallel import broadcast_, shard_params
+_MOMENTS = ("exp_avg", "exp_avg_sq")
 
-    shard_params(state.model, mesh)
+
+def _head_specs(state: TrainState) -> dict:
+    """{head tensor name: (dim, groups)} of the head's split tensors."""
+    from ..parallel import split_specs
+
+    return {k[len("head."):]: v for k, v in split_specs(state.model).items()
+            if k.startswith("head.")}
+
+
+def shard_train_state(state: TrainState, mesh) -> TrainState:
+    """Put ``state`` on ``mesh``, in place: the model (fp32 master head
+    with its BatchNorm statistics, frozen encoder), AdamW's moments and
+    step counters, and the step, all rank 0's; then, on a model axis,
+    this rank's shard of the split tensors and of their moments. Run it
+    at creation and after a resume (a whole state); train_step then
+    averages gradients over the data axis."""
+    from ..parallel import broadcast_, model_axis, shard_params
+    from ..parallel.mesh import shard_tensor
+
+    if state.split:
+        raise ValueError("the state is already split over a model axis")
     moments = [v for t in state.head.values() for v in state.opt.state.get(t, {}).values()]
     step = torch.tensor([state.step], dtype=torch.int64)
     broadcast_(moments + [step], mesh)
     state.step = int(step)
+    shard_params(state.model, mesh)
+    axis = model_axis(mesh)
+    specs = _head_specs(state)
+    for name, (dim, groups) in specs.items():
+        st = state.opt.state.get(state.head[name], {})
+        for k in _MOMENTS:
+            if k in st:
+                st[k] = shard_tensor(st[k], dim, groups, axis.size, axis.rank)
     state.mesh = mesh
+    state.split = set(specs) if axis is not None else None
     state._cast_encoder()
     return state
 
 
-def _mean_over_mesh(tensors, mesh) -> None:
-    """Every tensor replaced in place by its mean over the data axis: one
-    flattened buffer, all-reduced as a SUM, then divided by the axis size."""
+def _mean_over(tensors, mesh, axis: str = "data") -> None:
+    """Every tensor replaced in place by its mean over one axis of the mesh:
+    one flattened buffer, all-reduced as a SUM, then divided by the axis
+    size."""
     import torch.distributed as dist
 
-    from ..parallel import data_size
-
+    if not tensors:
+        return
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.get_group("data"))
-    flat /= data_size(mesh)
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.get_group(axis))
+    flat /= mesh.size(mesh.mesh_dim_names.index(axis))
     for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
         t.copy_(part.view_as(t))
 
@@ -239,9 +298,12 @@ def train_step(state: TrainState, batch: dict, cfg: ModelConfig, tc: TrainConfig
             t.grad = torch.zeros_like(t)
     metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
     if state.mesh is not None:
-        _mean_over_mesh([t.grad for t in state.head.values()], state.mesh)
+        _mean_over([t.grad for t in state.head.values()], state.mesh)
+        if state.split is not None:   # the whole tensors: one update on every rank
+            _mean_over([t.grad for n, t in state.head.items() if n not in state.split],
+                       state.mesh, "model")
         values = torch.stack(list(metrics.values()))
-        _mean_over_mesh([values], state.mesh)
+        _mean_over([values], state.mesh)
         metrics = dict(zip(metrics, values.unbind()))
     if phase:
         phase("optimizer")

@@ -9,7 +9,8 @@ with NumPy and unflattens it (``utils/tree.py``), and
 (``convert.load_checkpoint`` does both for a ``.npz`` path).
 ``load_checkpoint`` gives the tree of a ``.npz`` or a ``.pth``.
 ``resolve_checkpoint`` is the reference layout's lookup, ``.npz`` before
-``.pth``.
+``.pth``. ``save_model`` writes a model's weights, gathered whole first
+when the model is split over a mesh's model axis.
 """
 from __future__ import annotations
 
@@ -23,6 +24,21 @@ from .tree import flatten_tree, unflatten_tree
 def save_params(path: str, params) -> None:
     """The nested parameter tree -> a flat-key ``.npz``."""
     np.savez_compressed(path, **flatten_tree(params))
+
+
+def save_model(path: str, model, mesh=None) -> None:
+    """A VideoDepthAnything's weights -> a flat-key ``.npz``. With ``mesh``
+    the split tensors are gathered whole (``parallel.gather_params``, a
+    collective: every rank of the mesh calls this) and global rank 0 alone
+    writes."""
+    import torch.distributed as dist
+
+    from ..convert import params_from_state_dict
+    from ..parallel import gather_params
+
+    sd = model.state_dict() if mesh is None else gather_params(model, mesh)
+    if mesh is None or dist.get_rank() == 0:
+        save_params(path, params_from_state_dict(sd, model.cfg.vit.depth))
 
 
 def load_params(path: str) -> dict:
