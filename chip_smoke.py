@@ -165,6 +165,22 @@ printing no result, without either. Phases, each fatal on failure:
       bit in every output, loss and gathered head; K1, K2 and K3 launch counts read around each mesh
       call. A rank that fails fails the run; its times are two processes
       sharing one card.
+  (q) the serving artifact and the kernel build cache, after (p), through
+      tools/bench_serving_artifact.py's measure: vitl at full width and
+      depth (seeded random weights), 518x518, bf16, C = 1, its window
+      program exported by torch.export on the card, saved, loaded and run
+      against the live program (the pipeline's plain mode) on one random
+      window: bit for bit, the launches per call equal to live's (24 K1,
+      8 K2), its graph's vda:: nodes, ms per frame of both, export seconds
+      and bytes; then vits int8 the same (12 K3, 8 K2, the int8 state dict
+      equal to the pipeline's), and a vits int8 artifact traced on the CPU
+      and moved to the card, equal to live (so to the card-traced one) with
+      the same launches. Then tools/bench_compile_cache.py's measure: two
+      fresh processes on one empty temporary cache directory, the cold one
+      running an nvcc build per source and the warm one none; cold and warm
+      seconds of the build and the first vits window. Before that, a vits
+      artifact whose kernel libraries cannot be loaded must raise, as live
+      does.
   (f) timing: one window forward at 1x32x518x518 in bf16 and in int8,
       vits, vitl and vitg, and the cached steady state per new frame for vits;
       then a torch.profiler breakdown of the vits window by kernel kind,
@@ -173,7 +189,8 @@ printing no result, without either. Phases, each fatal on failure:
       --iters 3 --warmup 1, run last: its record, which may hold no
       section error.
   (g) one JSON line {"kernels": [...]} (nine kernels, each with its
-      launches per train step and on (p)'s mesh calls, K1 / K2 / K3 with
+      launches per train step, on (p)'s mesh calls and per call of (q)'s
+      artifacts, K1 / K2 / K3 with
       their local shapes' times; K2 with its backward's ms and error), then the card's name and power
       limit, then the last line {"ok": true, "device": {...}}.
 """
@@ -2439,6 +2456,95 @@ def model_axis_path(cardname, gen, record):
     return rec, launches, local
 
 
+def artifact_refuses_missing_kernels() -> str:
+    """(q): a vits artifact on the card whose kernel libraries cannot be
+    loaded raises the build's error, as the live program does (no path
+    around the kernels). Returns the error's first line."""
+    import torch
+    from video_depth_anything_torch.config import get_model_config
+    from video_depth_anything_torch.kernels import build
+    from video_depth_anything_torch.models import build_model
+    from video_depth_anything_torch.utils import serving_export as se
+
+    cfg = get_model_config("vits")
+    model = build_model(cfg, seed=0, device="cuda")
+    run = se.artifact_module(se.export_window_program(cfg, (140, 196), input_size=112))
+    win = torch.zeros((1, 32, 140, 196, 3), dtype=torch.uint8, device="cuda")
+    state = se.cast_params(model.state_dict())
+    with torch.no_grad():
+        run(state, win)
+        library = build.library
+
+        def missing(name):
+            raise build.KernelBuildError(f"{name}: library unavailable")
+
+        build.library = missing
+        try:
+            run(state, win)
+        except build.KernelBuildError as e:
+            return str(e).splitlines()[0]
+        finally:
+            build.library = library
+    raise AssertionError("(q) the artifact ran with its kernel libraries unavailable")
+
+
+def serving_artifact_path(cardname):
+    """(q): the serving artifact and the kernel build cache (module
+    docstring); returns (the records, the launches per artifact call)."""
+    import torch
+    from video_depth_anything_torch.kernels import build
+    from video_depth_anything_torch.tools import bench_compile_cache
+    from video_depth_anything_torch.tools import bench_serving_artifact as bsa
+
+    t0 = time.perf_counter()
+    recs, launches = {}, {}
+    cases = (("vitl_bf16", dict(encoder="vitl"),
+              {"spatial_attention": 24, "temporal_attention": 8}),
+             ("vits_int8", dict(encoder="vits", int8=True, cpu_trace=True),
+              {"spatial_attention_qk8": 12, "temporal_attention": 8}))
+    for label, kw, want in cases:
+        rec = bsa.measure(src_hw=(518, 518), iters=3, cpu_trace=kw.pop("cpu_trace", False), **kw)
+        recs[label] = rec
+        arts = [k for k in ("artifact", "artifact_cpu_traced") if k in rec]
+        for k in arts:
+            launches[f"{label}_{k}"] = rec[k]["launches_per_call"]
+        summary = "; ".join(
+            f"{k} (traced on {rec[k]['traced_on']}): equal {rec[k]['equal_to_live']}, "
+            f"{rec[k]['ms_per_frame']:.3f} ms/frame (idle {rec[k]['idle_share']:.3f}), "
+            f"export {rec[k]['export_s']:.1f} s, {rec[k]['bytes'] / 1e6:.2f} MB, "
+            f"launches {rec[k]['launches_per_call']}" for k in arts)
+        print(f"(q) {label} 518x518 C 1 on {cardname}: live {rec['live']['ms_per_frame']:.3f} "
+              f"ms/frame (idle {rec['live']['idle_share']:.3f}), launches "
+              f"{rec['live']['launches_per_call']}; {summary}", flush=True)
+        ok = (rec["live"]["launches_per_call"] == want and rec["output_finite"]
+              and rec["output_shape"] == [1, 32, 518, 518]
+              and rec["int8_state_equal"] in (None, True)
+              and all(rec[k]["equal_to_live"] and rec[k]["launches_equal_to_live"]
+                      and rec[k]["vda_ops"] == want for k in arts))
+        if not ok:
+            raise AssertionError(f"(q) {label}: {rec}; launches and graph ops wanted {want}")
+        torch.cuda.empty_cache()
+    refused = artifact_refuses_missing_kernels()
+    print(f"(q) no fallback: with its kernel library unavailable the artifact raises "
+          f"({refused})", flush=True)
+    recs["no_fallback"] = refused
+    tmp = tempfile.mkdtemp(prefix="vda_kernel_cache_")
+    try:
+        cache = bench_compile_cache.measure(tmp, "vits", 518)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    recs["compile_cache"] = cache
+    print(f"(q) kernel build cache on {cardname}: cold {cache['cold_s']:.2f} s (build "
+          f"{cache['cold']['build_s']:.2f} s, {cache['cold_nvcc_builds']} nvcc builds, first "
+          f"window {cache['cold']['first_window_s']:.2f} s), warm {cache['warm_s']:.2f} s (build "
+          f"{cache['warm']['build_s']:.3f} s, {cache['warm_nvcc_builds']} builds), speedup "
+          f"{cache['speedup']:.2f}x; phase (q) {time.perf_counter() - t0:.1f} s", flush=True)
+    if not (cache["cold_nvcc_builds"] == len(build.SOURCES) and cache["warm_nvcc_builds"] == 0
+            and cache["cold"]["finite"] and cache["warm"]["finite"]):
+        raise AssertionError(f"(q) compile cache: {cache}")
+    return recs, launches
+
+
 def bench_phase():
     """(j): the port's bench for vits at --iters 3 --warmup 1 (its main, in
     this process); its record is printed, and a section error fails."""
@@ -2630,6 +2736,7 @@ def main() -> int:
     train_rec, k2_backward = training_path(cardname)
     mesh_rec, launches_mesh = distributed_path(cardname)
     tp_rec, launches_tp, tp_local = model_axis_path(cardname, gen, record)
+    serving_rec, launches_artifact = serving_artifact_path(cardname)
     timing(cardname)
     breakdown(cardname)
     breakdown(cardname, "int8")
@@ -2702,6 +2809,7 @@ def main() -> int:
             "launches_model_axis_bf16": launches_tp["bf16"][name],
             "launches_model_axis_int8": launches_tp["int8"][name],
             "launches_model_axis_train_step": launches_tp["train_step"][name],
+            **{f"launches_{k}": n.get(name, 0) for k, n in launches_artifact.items()},
             **({"model_axis_local_shapes": tp_local[name]} if name in tp_local else {}),
             "max_abs_err": max(errs[(name, "bfloat16")], fp32 or 0.0),
             "max_abs_err_bf16": errs[(name, "bfloat16")],
@@ -2720,7 +2828,8 @@ def main() -> int:
         })
     print("long video, bench and train step summary: " + json.dumps(
         {"long_video": long_timings, "bench": bench_record, "train_step": train_rec,
-         "distributed": mesh_rec, "model_axis": tp_rec}), flush=True)
+         "distributed": mesh_rec, "model_axis": tp_rec, "serving_artifact": serving_rec}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(cardname, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -762,3 +762,46 @@ def test_fp32_train_step_card_vs_cpu(card):
         assert err <= 1e-3, (name, err)
         unused = name.startswith("scratch.refinenet4.resConfUnit1.")
         assert (g.abs().max().item() == 0) == unused, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("traced_on", ["cuda", "cpu"])
+def test_serving_artifact_launches_the_kernels_and_raises_without_them(card, traced_on,
+                                                                        monkeypatch, tmp_path):
+    """A toy window program exported on the card (or on the CPU and moved
+    there) equals the live program bit for bit with the same launches per
+    call; with its kernel library unavailable it raises, as live does."""
+    from video_depth_anything_torch.config import ModelConfig
+    from video_depth_anything_torch.kernels import build
+    from video_depth_anything_torch.utils import serving_export as se
+
+    cfg = ModelConfig(encoder="vits", vit_override=ViTConfig(128, depth=2, num_heads=2),
+                      features=32, out_channels=(32, 32, 32, 32), taps=(0, 0, 1, 1))
+    model = build_model(cfg, seed=0, device="cuda")
+    path = se.save_exported(se.export_window_program(cfg, (42, 56), input_size=28,
+                                                     device=traced_on), str(tmp_path / "a.pt2"))
+    run = se.artifact_module(se.load_exported(path, device="cuda"))
+    win = torch.randint(0, 256, (1, 32, 42, 56, 3), device="cuda", generator=card,
+                        dtype=torch.uint8)
+    net = se.geometry((42, 56), 28)
+    live = infer.PlainWindows(copy.deepcopy(model).to(torch.bfloat16), net, (42, 56),
+                              torch.bfloat16)
+    state = se.cast_params(model.state_dict())
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        want = live(win[0], None, 1)
+        want_n = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        got = run(state, win)
+        assert kernels.launch_counts() == want_n == counts(spatial_attention=2,
+                                                            temporal_attention=8)
+        assert torch.equal(got, want)
+
+        def missing(name):
+            raise build.KernelBuildError(f"{name}: no library")
+
+        monkeypatch.setattr(build, "library", missing)
+        with pytest.raises(build.KernelBuildError):
+            run(state, win)
+        with pytest.raises(build.KernelBuildError):
+            live(win[0], None, 1)

@@ -1,8 +1,28 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain version.
 
+Every kernel the model calls is a ``torch.library`` custom op in the
+``vda`` namespace, registered when this package is imported:
+``vda::spatial_attention`` (K1, with its route to K4 for dh != 64),
+``vda::spatial_attention_qk8`` (K3, with its fallback),
+``vda::temporal_attention`` (K2), ``vda::spatial_attention_qkv_fused``
+(K5), ``vda::attention_head_major`` (K4, the functional form) and
+``vda::fused_rcu`` (K6). Each op's CPU implementation is the kernel's plain
+version, its CUDA implementation the kernel through its ctypes binding (a
+failed build or launch raises), and its fake implementation gives the
+output's shape, dtype and strides without reading the inputs, so
+``torch.export`` records the op whatever device it traces on
+(``utils/serving_export.py``) and a shapes-only run on the ``meta`` device
+goes through. The Python wrappers refuse a gradient (``grad.py``) and then
+call the op; K2's autograd Function wraps its op.
+
 Every wrapper counts its kernel launches in a plain integer attribute
-(``wrapper.launches``); ``reset_launch_counts`` and ``launch_counts`` read
-them all, so a run can show that its main path went through the kernels.
+(``wrapper.launches``), incremented inside the op's CUDA implementation
+where it launches, so an exported program's calls count as live ones and
+the trace counts nothing; ``reset_launch_counts`` and ``launch_counts``
+read them all, so a run can show that its main path went through the
+kernels. The measurement kernels T1-T3 (``qk_probes.py``,
+``attention_variants.py``) are on no served path and stay plain Python
+wrappers.
 """
 from __future__ import annotations
 

@@ -14,6 +14,10 @@ own dtype (the scale rounded to that dtype, then the product), and the
 scores take no further scale. Unlike it, the kernel streams its keys, so
 S has no limit (the JAX wrapper sends S > 8448 to XLA). A tensor on the
 CPU takes the plain version; a CUDA tensor launches the kernel or raises.
+The wrapper reaches both through the custom op ``vda::attention_head_major``
+(``kernels/__init__.py``), which returns a new contiguous tensor; ``out=``
+is written by the wrapper. K1's route for dh != 64 writes K4's output in
+place through ``run_into``.
 
 ``mxu_denom=True`` sums the softmax denominator from the probabilities
 rounded to v's dtype, as the JAX kernel does with either of its
@@ -28,7 +32,7 @@ import torch
 
 from ..ops.attention import mha, scale_in
 from . import build
-from .grad import refuse_grad
+from .grad import check_device, refuse_grad
 
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -77,23 +81,12 @@ def _check(q, k, v, out):
                              f"strides {t.stride()}")
 
 
-def attention_head_major(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         scale: float, out: torch.Tensor | None = None,
-                         mxu_denom: bool = False) -> torch.Tensor:
-    """Multi-head attention on [B, H, S, D] -> [B, H, S, D].
-
-    With ``out`` (a [B, H, S, D] view with unit innermost stride, such as
-    the split heads of a [B, S, H*D] tensor) the result is written there and
-    ``out`` is returned; otherwise into a new contiguous tensor.
-    """
-    refuse_grad("attention_head_major (K4)", q, k, v, out)
+def run_into(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+             scale: float, mxu_denom: bool = False) -> torch.Tensor:
+    """K4 written into ``out`` (a CUDA tensor: launched and counted), or its
+    plain version copied there (the CPU); returns ``out``."""
     if q.device.type == "cpu":
-        o = attention_head_major_plain(q, k, v, scale=scale, mxu_denom=mxu_denom)
-        return o if out is None else out.copy_(o)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"attention_head_major runs on cuda or cpu, not {q.device}")
-    if out is None:
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        return out.copy_(attention_head_major_plain(q, k, v, scale=scale, mxu_denom=mxu_denom))
     _check(q, k, v, out)
     b, h, s, d = q.shape
     if q.numel() == 0:
@@ -108,6 +101,34 @@ def attention_head_major(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"attention_head_major kernel launch failed: cudaError {err}")
     attention_head_major.launches += 1
     return out
+
+
+@torch.library.custom_op("vda::attention_head_major", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def attention_head_major_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            scale: float, mxu_denom: bool) -> torch.Tensor:
+    return run_into(q, k, v, torch.empty(q.shape, dtype=q.dtype, device=q.device), scale,
+                    mxu_denom)
+
+
+@attention_head_major_op.register_fake
+def _(q, k, v, scale, mxu_denom):
+    return q.new_empty(q.shape)
+
+
+def attention_head_major(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         scale: float, out: torch.Tensor | None = None,
+                         mxu_denom: bool = False) -> torch.Tensor:
+    """Multi-head attention on [B, H, S, D] -> [B, H, S, D].
+
+    With ``out`` (a [B, H, S, D] view with unit innermost stride, such as
+    the split heads of a [B, S, H*D] tensor) the result is copied there and
+    ``out`` is returned; otherwise it is a new contiguous tensor.
+    """
+    refuse_grad("attention_head_major (K4)", q, k, v, out)
+    check_device("attention_head_major", q)
+    o = attention_head_major_op(q, k, v, float(scale), mxu_denom)
+    return o if out is None else out.copy_(o)
 
 
 attention_head_major.launches = 0

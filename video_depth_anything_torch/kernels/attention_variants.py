@@ -20,7 +20,9 @@ no value in fp32.
 
 The kernel takes contiguous bf16, as the tool runs it; the plain version
 also takes fp32 (the CPU tests). A tensor on the CPU takes the plain
-version; a CUDA tensor launches the kernel or raises.
+version; a CUDA tensor launches the kernel or raises. No served path runs
+T2, so it stays a plain Python wrapper and is not a ``torch.library``
+custom op (``kernels/__init__.py``).
 """
 from __future__ import annotations
 

@@ -1,9 +1,14 @@
 """Build the CUDA sources in ``csrc/`` with nvcc and bind them with ctypes.
 
 Each ``csrc/<name>.cu`` exports a plain C entry point and is compiled on
-its own into ``_build/lib<name>-<hash>.so`` for ``sm_90a`` (the hash
-covers the source, the shared headers ``csrc/*.cuh`` and the flags, so an
-edited source or header rebuilds). All sources compile in parallel, one
+its own into ``<BUILD_DIR>/lib<name>-<hash>.so`` for ``sm_90a`` (the hash
+covers the source, the shared headers ``csrc/*.cuh``, the flags and nvcc's
+``--version`` text, so an edited source or header, or another toolkit,
+rebuilds). ``BUILD_DIR`` is the package's ``_build/`` unless
+``utils/compile_cache.py`` points it at a shared cache directory: the
+names are content keys, and each library is written to a temporary file
+and renamed into place, so processes and checkouts share one directory
+safely. All sources compile in parallel, one
 nvcc process each, at the first call of any kernel. Nothing here runs at
 import time: the CPU tests import every module of the package on a machine
 that has no nvcc.
@@ -11,6 +16,7 @@ that has no nvcc.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -42,8 +48,18 @@ def _nvcc() -> str:
     raise KernelBuildError("nvcc not found (on PATH or /usr/local/cuda/bin)")
 
 
+@functools.lru_cache(maxsize=1)
+def nvcc_version() -> str:
+    """``nvcc --version``'s text: part of every library's key."""
+    proc = subprocess.run([_nvcc(), "--version"], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise KernelBuildError(f"nvcc --version: {proc.stdout}{proc.stderr}")
+    return proc.stdout
+
+
 def _target(name: str) -> str:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest.update(nvcc_version().encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     for fname in [name + ".cu", *headers]:
         with open(os.path.join(CSRC, fname), "rb") as f:
@@ -89,7 +105,9 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def build_log() -> dict[str, str]:
-    """nvcc output of this process's builds (register and smem use)."""
+    """nvcc output of this process's builds (register and smem use), one
+    entry per source nvcc compiled: none when every library was in
+    ``BUILD_DIR`` already."""
     return dict(_LOG)
 
 

@@ -19,7 +19,8 @@ re-laid once from the checkpoint's OIHW by ``kernel_weight`` (the model
 caches them per module, ``models/dpt.py``). Callers gate with
 ``rcu_supported``, the JAX package's own gate (a TPU lane constraint:
 C % 128 == 0). A tensor on the CPU takes the plain version; a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises, both through the custom op
+``vda::fused_rcu`` (``kernels/__init__.py``).
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .grad import refuse_grad
+from .grad import check_device, refuse_grad
 
 LANES = 128     # the JAX gate's channel multiple
 MAX_C = 384     # the widest C whose bf16 tile fits a block's shared memory
@@ -92,14 +93,14 @@ def _check(x, w1, b1, w2, b2):
         raise ValueError("x must be contiguous with a 16-byte aligned start")
 
 
-def fused_rcu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-              w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """x + conv2(relu(conv1(relu(x)))) on NHWC x -> a new [N, H, W, C]."""
-    refuse_grad("fused_rcu (K6)", x, w1, b1, w2, b2)
-    if x.device.type == "cpu":
-        return fused_rcu_plain(x, w1, b1, w2, b2)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"fused_rcu runs on cuda or cpu, not {x.device}")
+@torch.library.custom_op("vda::fused_rcu", mutates_args=(), device_types="cpu")
+def fused_rcu_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                 b2: torch.Tensor) -> torch.Tensor:
+    return fused_rcu_plain(x, w1, b1, w2, b2).contiguous()
+
+
+@fused_rcu_op.register_kernel("cuda")
+def _(x, w1, b1, w2, b2):
     _check(x, w1, b1, w2, b2)
     n, h, w, c = x.shape
     out = torch.empty_like(x)
@@ -114,6 +115,19 @@ def fused_rcu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         raise RuntimeError(f"fused_rcu kernel launch failed: cudaError {err}")
     fused_rcu.launches += 1
     return out
+
+
+@fused_rcu_op.register_fake
+def _(x, w1, b1, w2, b2):
+    return x.new_empty(x.shape)
+
+
+def fused_rcu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+              w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """x + conv2(relu(conv1(relu(x)))) on NHWC x -> a new [N, H, W, C]."""
+    refuse_grad("fused_rcu (K6)", x, w1, b1, w2, b2)
+    check_device("fused_rcu", x)
+    return fused_rcu_op(x, w1, b1, w2, b2)
 
 
 fused_rcu.launches = 0

@@ -7,6 +7,10 @@ instead (as differentiating a ``pallas_call`` without a VJP rule fails in
 the JAX package). Only K2 has one (``temporal_attention.py``). The check
 holds on the CPU as well, where the plain versions could differentiate,
 so that a CPU run never trains a function the card would not.
+
+``check_device`` is the wrappers' other check before their custom op: a
+kernel runs on the card, its plain version on the CPU, and a ``meta``
+tensor (a run for shapes only) takes the op's fake implementation.
 """
 from __future__ import annotations
 
@@ -19,3 +23,9 @@ def refuse_grad(kernel: str, *tensors: torch.Tensor | None) -> None:
         raise RuntimeError(
             f"{kernel} has no backward: its output would silently drop the gradient. "
             f"Call it under torch.no_grad() or on tensors that do not require grad.")
+
+
+def check_device(kernel: str, t: torch.Tensor) -> None:
+    """Raise unless ``t`` lies on the card, the CPU or the meta device."""
+    if t.device.type not in ("cpu", "cuda", "meta"):
+        raise RuntimeError(f"{kernel} runs on cuda or cpu, not {t.device}")

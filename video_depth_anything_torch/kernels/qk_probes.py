@@ -11,7 +11,8 @@ of this package) can time it. The CUDA sources, with the notes on their
 bounds and designs, are ``csrc/phase_probes.cu`` (T1) and
 ``csrc/qk_probes.cu`` (T3, a persistent kernel whose wgmma accumulators
 are the column-group sums), both on the attention body's wgmma + TMA
-machinery.
+machinery. No served path runs them, so they stay plain Python wrappers
+and are not ``torch.library`` custom ops (``kernels/__init__.py``).
 
 Every probe works per step on ``[steps, rows, 128]`` operands; "x2" probes
 split the 128 columns into two heads of 64:

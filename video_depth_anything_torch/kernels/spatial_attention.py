@@ -12,7 +12,9 @@ as in the JAX package, any other head dim goes to K4
 (``kernels/attention_head_major.py``) on split-head views, writing the
 ``[B, S, C]`` output in place. An odd head count at dh = 64 stays on K1,
 which runs one block per head. A tensor on the CPU takes the plain
-version; a CUDA tensor launches the kernel or raises.
+version; a CUDA tensor launches the kernel or raises. The wrapper reaches
+both, and the route to K4, through the custom op ``vda::spatial_attention``
+(``kernels/__init__.py``).
 
 The JAX kernel's two options are switches here, off by default (the
 model's calls keep the defaults):
@@ -36,8 +38,8 @@ import torch
 
 from ..ops.attention import LOG2E, merge_heads, mha, scale_in, split_heads
 from . import build
-from .grad import refuse_grad
-from .attention_head_major import attention_head_major
+from .attention_head_major import run_into
+from .grad import check_device, refuse_grad
 
 HEAD_DIM = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -127,9 +129,32 @@ def _head_major_route(q, k, v, num_heads, scale, mxu_denom, exp2):
         raise ValueError(f"q must be [B, S, C] with C divisible by num_heads="
                          f"{num_heads}: {tuple(q.shape)}")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    attention_head_major(*(split_heads(t, num_heads) for t in (q, k, v)), scale=scale,
-                         out=split_heads(out, num_heads), mxu_denom=mxu_denom)
+    run_into(*(split_heads(t, num_heads) for t in (q, k, v)), split_heads(out, num_heads),
+             scale, mxu_denom)
     return out
+
+
+@torch.library.custom_op("vda::spatial_attention", mutates_args=(), device_types="cpu")
+def spatial_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+                         scale: float, mxu_denom: bool, exp2: bool) -> torch.Tensor:
+    if q.shape[-1] != num_heads * HEAD_DIM:
+        return _head_major_route(q, k, v, num_heads, scale, mxu_denom, exp2)
+    return spatial_attention_plain(q, k, v, num_heads=num_heads, scale=scale,
+                                   mxu_denom=mxu_denom, exp2=exp2)
+
+
+@spatial_attention_op.register_kernel("cuda")
+def _(q, k, v, num_heads, scale, mxu_denom, exp2):
+    if q.shape[-1] != num_heads * HEAD_DIM:
+        return _head_major_route(q, k, v, num_heads, scale, mxu_denom, exp2)
+    out = launch(q, k, v, num_heads=num_heads, scale=scale, mxu_denom=mxu_denom, exp2=exp2)
+    spatial_attention.launches += 1
+    return out
+
+
+@spatial_attention_op.register_fake
+def _(q, k, v, num_heads, scale, mxu_denom, exp2):
+    return q.new_empty(q.shape)
 
 
 def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -137,16 +162,8 @@ def spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       exp2: bool = False) -> torch.Tensor:
     """Multi-head attention on [B, S, H*dh] -> contiguous [B, S, H*dh]."""
     refuse_grad("spatial_attention (K1)", q, k, v)
-    if q.shape[-1] != num_heads * HEAD_DIM:
-        return _head_major_route(q, k, v, num_heads, scale, mxu_denom, exp2)
-    if q.device.type == "cpu":
-        return spatial_attention_plain(q, k, v, num_heads=num_heads, scale=scale,
-                                       mxu_denom=mxu_denom, exp2=exp2)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"spatial_attention runs on cuda or cpu, not {q.device}")
-    out = launch(q, k, v, num_heads=num_heads, scale=scale, mxu_denom=mxu_denom, exp2=exp2)
-    spatial_attention.launches += 1
-    return out
+    check_device("spatial_attention", q)
+    return spatial_attention_op(q, k, v, num_heads, float(scale), mxu_denom, exp2)
 
 
 spatial_attention.launches = 0

@@ -16,7 +16,8 @@ As in the JAX package, an odd head count, S > 8448 or a head dim other
 than 64 takes the fallback: q and k dequantized to v's dtype and
 ``spatial_attention`` at scale 1 (K1, or K4 for dh != 64). A tensor on
 the CPU takes the plain version; a CUDA tensor launches the kernel or
-raises.
+raises. The wrapper reaches both, and the fallback, through the custom op
+``vda::spatial_attention_qk8`` (``kernels/__init__.py``).
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import torch
 
 from ..ops.attention import merge_heads, split_heads
 from . import build
-from .grad import refuse_grad
+from .grad import check_device, refuse_grad
 from .spatial_attention import spatial_attention
 
 HEAD_DIM = 64
@@ -92,17 +93,22 @@ def _check(q8, k8, v, scales, num_heads):
                          f"strides {v.stride()}")
 
 
-def spatial_attention_qk8(q8: torch.Tensor, k8: torch.Tensor, v: torch.Tensor,
-                          scales: torch.Tensor, *, num_heads: int) -> torch.Tensor:
-    """int8-QK multi-head attention on [B, S, H*64] -> contiguous [B, S, H*64]
-    in v's dtype."""
-    refuse_grad("spatial_attention_qk8 (K3)", q8, k8, v, scales)
-    if num_heads % 2 or q8.shape[1] > MAX_S or q8.shape[2] != num_heads * HEAD_DIM:
+def _falls_back(q8, num_heads) -> bool:
+    return num_heads % 2 or q8.shape[1] > MAX_S or q8.shape[2] != num_heads * HEAD_DIM
+
+
+@torch.library.custom_op("vda::spatial_attention_qk8", mutates_args=(), device_types="cpu")
+def spatial_attention_qk8_op(q8: torch.Tensor, k8: torch.Tensor, v: torch.Tensor,
+                             scales: torch.Tensor, num_heads: int) -> torch.Tensor:
+    if _falls_back(q8, num_heads):
         return _fallback(q8, k8, v, scales, num_heads)
-    if q8.device.type == "cpu":
-        return spatial_attention_qk8_plain(q8, k8, v, scales, num_heads=num_heads)
-    if q8.device.type != "cuda":
-        raise RuntimeError(f"spatial_attention_qk8 runs on cuda or cpu, not {q8.device}")
+    return spatial_attention_qk8_plain(q8, k8, v, scales, num_heads=num_heads)
+
+
+@spatial_attention_qk8_op.register_kernel("cuda")
+def _(q8, k8, v, scales, num_heads):
+    if _falls_back(q8, num_heads):
+        return _fallback(q8, k8, v, scales, num_heads)
     _check(q8, k8, v, scales, num_heads)
     b, s, c = q8.shape
     out = torch.empty((b, s, c), dtype=v.dtype, device=v.device)
@@ -116,6 +122,20 @@ def spatial_attention_qk8(q8: torch.Tensor, k8: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"spatial_attention_qk8 kernel launch failed: cudaError {err}")
     spatial_attention_qk8.launches += 1
     return out
+
+
+@spatial_attention_qk8_op.register_fake
+def _(q8, k8, v, scales, num_heads):
+    return v.new_empty(q8.shape)
+
+
+def spatial_attention_qk8(q8: torch.Tensor, k8: torch.Tensor, v: torch.Tensor,
+                          scales: torch.Tensor, *, num_heads: int) -> torch.Tensor:
+    """int8-QK multi-head attention on [B, S, H*64] -> contiguous [B, S, H*64]
+    in v's dtype."""
+    refuse_grad("spatial_attention_qk8 (K3)", q8, k8, v, scales)
+    check_device("spatial_attention_qk8", q8)
+    return spatial_attention_qk8_op(q8, k8, v, scales, num_heads)
 
 
 spatial_attention_qk8.launches = 0

@@ -10,7 +10,8 @@ falls back. Not routed in the model, as in the JAX package.
 
 qkv is ``[B, S, 3C]``, laid out ``[q | k | v]`` with q already scaled; the
 output is a contiguous ``[B, S, C]``. A tensor on the CPU takes the plain
-version; a CUDA tensor launches the kernel or raises. ``mxu_denom`` is
+version; a CUDA tensor launches the kernel or raises, both through the
+custom op ``vda::spatial_attention_qkv_fused`` (``kernels/__init__.py``). ``mxu_denom`` is
 K1's switch (the JAX wrapper's option of that name; JAX has no ``exp2``
 here).
 """
@@ -19,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from . import spatial_attention as k1
-from .grad import refuse_grad
+from .grad import check_device, refuse_grad
 
 
 def _split(qkv: torch.Tensor):
@@ -37,20 +38,38 @@ def spatial_attention_qkv_fused_plain(qkv: torch.Tensor, *, num_heads: int,
                                       mxu_denom=mxu_denom)
 
 
+@torch.library.custom_op("vda::spatial_attention_qkv_fused", mutates_args=(),
+                         device_types="cpu")
+def spatial_attention_qkv_fused_op(qkv: torch.Tensor, num_heads: int,
+                                   mxu_denom: bool) -> torch.Tensor:
+    q, k, v = _split(qkv)
+    if q.shape[2] != num_heads * k1.HEAD_DIM:   # K4
+        return k1._head_major_route(q, k, v, num_heads, 1.0, mxu_denom, False)
+    return spatial_attention_qkv_fused_plain(qkv, num_heads=num_heads, mxu_denom=mxu_denom)
+
+
+@spatial_attention_qkv_fused_op.register_kernel("cuda")
+def _(qkv, num_heads, mxu_denom):
+    q, k, v = _split(qkv)
+    if q.shape[2] != num_heads * k1.HEAD_DIM:   # K4
+        return k1._head_major_route(q, k, v, num_heads, 1.0, mxu_denom, False)
+    out = k1.launch(q, k, v, num_heads=num_heads, scale=1.0, mxu_denom=mxu_denom)
+    spatial_attention_qkv_fused.launches += 1
+    return out
+
+
+@spatial_attention_qkv_fused_op.register_fake
+def _(qkv, num_heads, mxu_denom):
+    q, _, _ = _split(qkv)
+    return qkv.new_empty(q.shape)
+
+
 def spatial_attention_qkv_fused(qkv: torch.Tensor, *, num_heads: int,
                                 mxu_denom: bool = False) -> torch.Tensor:
     """Multi-head attention on a fused [B, S, 3C] (q pre-scaled) -> [B, S, C]."""
     refuse_grad("spatial_attention_qkv_fused (K5)", qkv)
-    q, k, v = _split(qkv)
-    if q.shape[2] != num_heads * k1.HEAD_DIM:   # K4
-        return k1.spatial_attention(q, k, v, num_heads=num_heads, scale=1.0, mxu_denom=mxu_denom)
-    if qkv.device.type == "cpu":
-        return spatial_attention_qkv_fused_plain(qkv, num_heads=num_heads, mxu_denom=mxu_denom)
-    if qkv.device.type != "cuda":
-        raise RuntimeError(f"spatial_attention_qkv_fused runs on cuda or cpu, not {qkv.device}")
-    out = k1.launch(q, k, v, num_heads=num_heads, scale=1.0, mxu_denom=mxu_denom)
-    spatial_attention_qkv_fused.launches += 1
-    return out
+    check_device("spatial_attention_qkv_fused", qkv)
+    return spatial_attention_qkv_fused_op(qkv, num_heads, mxu_denom)
 
 
 spatial_attention_qkv_fused.launches = 0

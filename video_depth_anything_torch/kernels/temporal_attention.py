@@ -9,14 +9,15 @@ q, k, v are contiguous ``[P, T, C]`` with head h owning channels
 ``[h*dh, (h+1)*dh)`` and T <= 32. q is pre-scaled by ``scale`` in its own
 dtype (the scale itself rounded to that dtype, as the JAX code does). A
 tensor on the CPU takes the plain version; a CUDA tensor launches the
-kernel or raises. The bf16 kernel works on head dims in blocks of 8
+kernel or raises, both through the custom op ``vda::temporal_attention``
+(``kernels/__init__.py``). The bf16 kernel works on head dims in blocks of 8
 channels, up to 512: another head dim is padded with zero channels per
 head around the launch (they change no score, and their outputs are
 dropped).
 
 Under a gradient (grad mode on and an input that requires grad) the
-wrapper goes through ``TemporalAttentionFunction``: the forward is K2 (the
-plain version on the CPU), and the backward is the gradient of
+wrapper goes through ``TemporalAttentionFunction``: the forward is the
+op, K2 on the card (the plain version on the CPU), and the backward is the gradient of
 ``temporal_attention_plain`` at the saved q, k, v, recomputed in plain
 PyTorch. The JAX package has no backward kernel to port (no
 ``custom_vjp``: XLA differentiates its motion modules through
@@ -33,6 +34,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import mha, scale_in
 from . import build
+from .grad import check_device
 
 MAX_FRAMES = 32
 MAX_BF16_HEAD_DIM = 512   # two tiles of one head's q, k, v fill a block's shared memory
@@ -100,7 +102,7 @@ class TemporalAttentionFunction(torch.autograd.Function):
     def forward(ctx, q, k, v, num_heads: int, scale: float):
         ctx.save_for_backward(q, k, v)
         ctx.num_heads, ctx.scale = num_heads, scale
-        return _forward(q, k, v, num_heads, scale)
+        return temporal_attention_op(q, k, v, num_heads, scale)
 
     @staticmethod
     def backward(ctx, do):
@@ -117,17 +119,21 @@ class TemporalAttentionFunction(torch.autograd.Function):
 def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        num_heads: int, scale: float) -> torch.Tensor:
     """Per-pixel multi-head attention over frames: [P, T, C] -> [P, T, C]."""
+    check_device("temporal_attention", q)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return TemporalAttentionFunction.apply(q, k, v, num_heads, scale)
-    return _forward(q, k, v, num_heads, scale)
+    return temporal_attention_op(q, k, v, num_heads, float(scale))
 
 
-def _forward(q, k, v, num_heads, scale):
-    """The plain version on the CPU; K2 on a CUDA tensor, counted."""
-    if q.device.type == "cpu":
-        return temporal_attention_plain(q, k, v, num_heads=num_heads, scale=scale)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"temporal_attention runs on cuda or cpu, not {q.device}")
+@torch.library.custom_op("vda::temporal_attention", mutates_args=(), device_types="cpu")
+def temporal_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+                          scale: float) -> torch.Tensor:
+    return temporal_attention_plain(q, k, v, num_heads=num_heads, scale=scale)
+
+
+@temporal_attention_op.register_kernel("cuda")
+def _launch(q, k, v, num_heads, scale):
+    """K2 on CUDA tensors, counted."""
     _check(q, k, v, num_heads)
     p, t, c = q.shape
     dh = c // num_heads
@@ -135,7 +141,7 @@ def _forward(q, k, v, num_heads, scale):
         return torch.empty_like(q)
     if q.dtype == torch.bfloat16 and dh % 8:
         dp = -(-dh // 8) * 8
-        out = _forward(*(pad_heads(x, num_heads, dp) for x in (q, k, v)), num_heads, scale)
+        out = _launch(*(pad_heads(x, num_heads, dp) for x in (q, k, v)), num_heads, scale)
         return out.reshape(p, t, num_heads, dp)[..., :dh].reshape(p, t, c)
     q, k, v = (x if x.data_ptr() % _ALIGN == 0 else x.clone() for x in (q, k, v))
     out = torch.empty_like(q)
@@ -149,6 +155,11 @@ def _forward(q, k, v, num_heads, scale):
         raise RuntimeError(f"temporal_attention kernel launch failed: cudaError {err}")
     temporal_attention.launches += 1
     return out
+
+
+@temporal_attention_op.register_fake
+def _(q, k, v, num_heads, scale):
+    return q.new_empty(q.shape)
 
 
 temporal_attention.launches = 0

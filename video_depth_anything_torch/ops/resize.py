@@ -73,16 +73,35 @@ def linear_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
     return mat
 
 
-@functools.lru_cache(maxsize=256)
+def tracing() -> bool:
+    """True while a trace runs this code: ``torch.export`` or
+    ``torch.compile`` (whose tensors are fake, so nothing built then may be
+    cached for a live call)."""
+    from torch._guards import detect_fake_mode
+
+    return torch.compiler.is_compiling() or detect_fake_mode() is not None
+
+
 def device_matrix(kind: str, in_size: int, out_size: int, scale: float | None,
                   device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """The ``kind`` ("cubic" or "linear") matrix on ``device`` in ``dtype``,
     copied there once. A host-to-device copy from pageable memory waits for
     the device's queue to drain, so a copy per call would stall the host
-    behind the card on every resize."""
+    behind the card on every resize. Under a trace the matrix is built and
+    not cached: the trace's tensor is a fake one, and a later live call
+    would get it back."""
+    if tracing():
+        return _build_matrix(kind, in_size, out_size, scale, device, dtype)
+    return _cached_matrix(kind, in_size, out_size, scale, device, dtype)
+
+
+def _build_matrix(kind, in_size, out_size, scale, device, dtype) -> torch.Tensor:
     mat = (cubic_resize_matrix(in_size, out_size, scale) if kind == "cubic"
            else linear_resize_matrix(in_size, out_size))
     return torch.from_numpy(np.array(mat)).to(device=device, dtype=dtype)
+
+
+_cached_matrix = functools.lru_cache(maxsize=256)(_build_matrix)
 
 
 def apply_separable(x: torch.Tensor, mh: torch.Tensor,

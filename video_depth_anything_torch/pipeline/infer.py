@@ -103,6 +103,7 @@ from ..parallel.distributed import process_batch_bounds
 from ..parallel.mesh import (data_size, gather_model, mesh_device, model_axis, shard_params,
                              split_params)
 from ..utils.profiling import WindowTimer
+from ..utils.serving_export import WindowProgram
 from ..utils.tree import flatten_tree, unflatten_tree
 from . import preprocess, stitch, windows
 
@@ -347,21 +348,19 @@ class BatchedKeyframeCache:
 
 class PlainWindows:
     """The full forward of r windows of 32 uploaded frames (ReLU at network
-    resolution inside the model), then the resize to source. With a
-    ``DataAxis`` the frames are this rank's share of the windows, and the
-    depths are all-gathered."""
+    resolution inside the model), then the resize to source: the window
+    program the serving artifact exports (``utils/serving_export.py``),
+    called with the model's own weights. With a ``DataAxis`` the frames
+    are this rank's share of the windows, and the depths are
+    all-gathered."""
 
     def __init__(self, model, net_hw, src_hw, dtype, axis: DataAxis | None = None):
-        self.model, self.net_hw, self.src_hw, self.dtype = model, net_hw, src_hw, dtype
+        self.program = WindowProgram(model, net_hw, src_hw, dtype)
         self.axis = axis
 
     def __call__(self, frames: torch.Tensor, index, r: int, n=None) -> torch.Tensor:
         rows = frames.shape[0] // INFER_LEN
-        x = preprocess.preprocess_frames(frames, self.net_hw, self.dtype)
-        depth = self.model(x.reshape(rows, INFER_LEN, *x.shape[1:]))   # [rows, 32, h, w]
-        depth = depth.reshape(rows * INFER_LEN, *depth.shape[2:], 1)
-        depth = resize_bilinear_align_corners(depth.float(), self.src_hw)
-        depth = torch.relu(depth)[..., 0].reshape(rows, INFER_LEN, *self.src_hw)
+        depth = self.program(None, frames.reshape(rows, INFER_LEN, *frames.shape[1:]))
         return depth if self.axis is None else self.axis.gather(depth, r)
 
 

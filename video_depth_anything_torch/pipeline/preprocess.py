@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from ..config import IMAGENET_MEAN, IMAGENET_STD
-from ..ops.resize import resize_bicubic_half_pixel
+from ..ops.resize import apply_separable, device_matrix, resize_bicubic_half_pixel, tracing
 
 
 def effective_input_size(frame_h: int, frame_w: int, input_size: int = 518) -> int:
@@ -37,20 +37,45 @@ def network_input_hw(frame_h: int, frame_w: int, input_size: int) -> tuple[int, 
 
 
 def preprocess_frames(frames: torch.Tensor, out_hw: tuple[int, int],
-                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                      dtype: torch.dtype = torch.float32, consts=None) -> torch.Tensor:
     """frames [..., H, W, 3] uint8 (or float in [0, 1]) -> normalised
-    [..., h, w, 3] in ``dtype``; the resize runs in fp32 for cv2 parity."""
+    [..., h, w, 3] in ``dtype``; the resize runs in fp32 for cv2 parity.
+    ``consts``: ``preprocess_consts``'s tensors for these frames, built
+    ahead (``utils/serving_export.py::WindowProgram`` keeps them as
+    buffers); without them they come from the per-device caches."""
     x = frames.float()
     if frames.dtype == torch.uint8:
         x = x / 255.0
-    x = resize_bicubic_half_pixel(x, out_hw)
-    mean, std = _imagenet(x.device)
+    if consts is None:
+        x = resize_bicubic_half_pixel(x, out_hw)
+        mean, std = _imagenet(x.device)
+    else:
+        mh, mw, mean, std = consts
+        x = apply_separable(x, mh, mw)
     return ((x - mean) / std).to(dtype)
 
 
-@functools.lru_cache(maxsize=8)
+def preprocess_consts(src_hw: tuple[int, int], out_hw: tuple[int, int],
+                      device: torch.device) -> tuple[torch.Tensor, ...]:
+    """(cubic [h, H], cubic [w, W], ImageNet mean, std), fp32 on ``device``:
+    what ``preprocess_frames`` reads for frames of ``src_hw``."""
+    return (device_matrix("cubic", src_hw[0], out_hw[0], None, device, torch.float32),
+            device_matrix("cubic", src_hw[1], out_hw[1], None, device, torch.float32),
+            *_imagenet(device))
+
+
 def _imagenet(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """The normalisation constants on ``device``, copied there once (a copy
-    per call would wait for the device's queue)."""
+    per call would wait for the device's queue); under a trace built and
+    not cached (``ops/resize.py::device_matrix``)."""
+    if tracing():
+        return _imagenet_tensors(device)
+    return _cached_imagenet(device)
+
+
+def _imagenet_tensors(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     return (torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
             torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device))
+
+
+_cached_imagenet = functools.lru_cache(maxsize=8)(_imagenet_tensors)

@@ -19,7 +19,10 @@ keyframe cache); ``--streaming`` decodes on a background thread, encodes
 ``_src.mp4`` as frames go by and spills depth chunks to a disk spool, so
 host memory stays bounded for any video length, with the same outputs as
 the batch run; ``--transfer_fp16`` brings depths back to the host as fp16.
-The three compose with each other and with ``--int8``. Decoding and
+The three compose with each other and with ``--int8``.
+``--compile_cache [DIR]`` (or ``VDA_COMPILE_CACHE``) keeps the nvcc-built
+kernel libraries in a directory shared across processes and checkouts
+(``utils/compile_cache.py``), so a warm start runs no nvcc. Decoding and
 writing need OpenCV; ``--decode_backend ffmpeg`` (or
 ``VDA_DECODE_BACKEND=ffmpeg``) decodes in an ffmpeg subprocess through
 imageio_ffmpeg.
@@ -90,6 +93,12 @@ def parse_args(argv=None):
                              "ffmpeg needs imageio_ffmpeg")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (default cuda; cpu runs the plain path)")
+    parser.add_argument("--compile_cache", type=str, nargs="?", const="", default=None,
+                        metavar="DIR",
+                        help="keep the nvcc-built kernel libraries in DIR (default "
+                             "~/.cache/video_depth_anything_torch/kernels when given "
+                             "without DIR), shared across processes and checkouts; "
+                             "without the flag VDA_COMPILE_CACHE is honoured")
     return parser.parse_args(argv)
 
 
@@ -151,6 +160,13 @@ def main(argv=None):
     import torch
 
     probe_device(args.device)
+
+    from .utils.compile_cache import enable_compile_cache, maybe_enable_from_env
+
+    if args.compile_cache is not None:   # before the first kernel call builds
+        print(f"kernel build cache: {enable_compile_cache(args.compile_cache)}")
+    elif (cache := maybe_enable_from_env()) is not None:
+        print(f"kernel build cache (VDA_COMPILE_CACHE): {cache}")
 
     from .config import get_model_config
     from .pipeline import VideoDepthPipeline

@@ -9,7 +9,9 @@ delta1 / TAE) -> best / latest checkpoints with early-stop patience.
         [--config configs/config.yaml] [--out_dir ./train_out] [--resume]
 
 Runs on ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch
-path). The datasets read PIL images and the config is yaml, so the
+path); ``--compile_cache [DIR]`` (or ``VDA_COMPILE_CACHE``) keeps the
+nvcc-built kernel libraries in a shared directory
+(``utils/compile_cache.py``). The datasets read PIL images and the config is yaml, so the
 machine needs PIL and PyYAML; validation pictures need cv2. The model
 starts from ``init_random``'s seeded weights (seed 0), as the JAX driver
 starts from ``init_params(0, cfg)``.
@@ -225,7 +227,19 @@ def main(argv=None):
     parser.add_argument("--distributed", action="store_true",
                         help="data parallelism over the ranks torchrun starts: "
                              "torch.distributed, a global mesh, per-rank data shards")
+    parser.add_argument("--compile_cache", type=str, nargs="?", const="", default=None,
+                        metavar="DIR",
+                        help="keep the nvcc-built kernel libraries in DIR (default "
+                             "~/.cache/video_depth_anything_torch/kernels when given "
+                             "without DIR), shared across processes and checkouts; "
+                             "without the flag VDA_COMPILE_CACHE is honoured")
     args = parser.parse_args(argv)
+    from ..utils.compile_cache import enable_compile_cache, maybe_enable_from_env
+
+    if args.compile_cache is not None:   # before the first kernel call builds
+        print(f"kernel build cache: {enable_compile_cache(args.compile_cache)}")
+    elif (cache := maybe_enable_from_env()) is not None:
+        print(f"kernel build cache (VDA_COMPILE_CACHE): {cache}")
     train(args.config, args.data_root, args.google_image_root,
           args.google_depth_root, args.out_dir, args.max_steps, args.resume,
           distributed=args.distributed, device=args.device)
