@@ -181,6 +181,26 @@ printing no result, without either. Phases, each fatal on failure:
       seconds of the build and the first vits window. Before that, a vits
       artifact whose kernel libraries cannot be loaded must raise, as live
       does.
+  (r) the stage and measurement tools of tools/, after (q), each once at
+      its full-width default with only its timed repeats cut (one chain,
+      or two timings for bench_residue; mxu_geometry at a 0.05 s margin):
+      bench_ablate in its four modes, bench_segments, bench_head_fine and
+      bench_temporal_swap on one vitl bf16 1x32x518x518 window, then
+      bench_head_convs, bench_memory (vits and vitl, bf16 and fp32),
+      bench_mxu_geometry, bench_int8_conv, bench_residue, bench_drift_518
+      (vitl, 50 frames), bench_temporal_kernel, bench_stock_flash and
+      bench_attn_kernel (both modes). Launch counts are read around each
+      tool, and each kernel a tool times must have launched. Fails if
+      ablate's unablated forward, or segments' timed stages composed (the
+      head on its taps, then finish), is not VideoDepthAnything.forward's
+      output bit for bit, if the forward after any variant is not (a stub
+      left in place), if segments' taps are not the ones the forward hands
+      its head, if
+      a memory record's weights + frames are not the model's parameter and
+      buffer bytes plus the window's exactly or its peak is not below the
+      card's memory, if a GEMM rate reads over 105 % of its peak, if a
+      drift number is not finite, or if an agreement that temporal_kernel,
+      stock_flash or attn_kernel prints is over that kernel's TOL.
   (f) timing: one window forward at 1x32x518x518 in bf16 and in int8,
       vits, vitl and vitg, and the cached steady state per new frame for vits;
       then a torch.profiler breakdown of the vits window by kernel kind,
@@ -189,7 +209,7 @@ printing no result, without either. Phases, each fatal on failure:
       --iters 3 --warmup 1, run last: its record, which may hold no
       section error.
   (g) one JSON line {"kernels": [...]} (nine kernels, each with its
-      launches per train step, on (p)'s mesh calls and per call of (q)'s
+      launches summed over (r)'s tools, its launches per train step, on (p)'s mesh calls and per call of (q)'s
       artifacts, K1 / K2 / K3 with
       their local shapes' times; K2 with its backward's ms and error), then the card's name and power
       limit, then the last line {"ok": true, "device": {...}}.
@@ -2545,6 +2565,120 @@ def serving_artifact_path(cardname):
     return recs, launches
 
 
+def stage_tools_path(cardname):
+    """(r): the stage and measurement tools of tools/, once each at their
+    full-width defaults with their timed repeats cut (module docstring).
+    Returns (the records, each kernel's launches summed over the tools)."""
+    import math
+
+    import torch
+    from video_depth_anything_torch import kernels
+    from video_depth_anything_torch.tools import (
+        bench_ablate, bench_attn_kernel, bench_drift_518, bench_head_convs, bench_head_fine,
+        bench_int8_conv, bench_memory, bench_mxu_geometry, bench_residue, bench_segments,
+        bench_stock_flash, bench_temporal_kernel, bench_temporal_swap)
+
+    t0 = time.perf_counter()
+    total = {name: 0 for name in kernels.KERNELS}
+    recs, walls = {}, {}
+
+    def run(label, timed, fn):
+        """fn's record, its launches read around it; every kernel the tool
+        times must have launched."""
+        t = time.perf_counter()
+        kernels.reset_launch_counts()
+        rec = fn()
+        got = kernels.launch_counts()
+        walls[label] = round(time.perf_counter() - t, 1)
+        for name, n in got.items():
+            total[name] += n
+        missing = [name for name in timed if got[name] == 0]
+        if missing:
+            raise AssertionError(f"(r) {label}: no launch of {missing} ({got})")
+        recs[label] = rec
+        return rec
+
+    _, model, x = bench_ablate.window("vitl")
+    taps = []                   # the taps the forward hands its head
+    hook = model.head.register_forward_pre_hook(lambda mod, args: taps.append(args[0]))
+    try:
+        with torch.no_grad():
+            ref = model(x)      # VideoDepthAnything.forward, the reference of every check
+    finally:
+        hook.remove()
+    taps = taps[0]
+    for mode in bench_ablate.MODES:
+        rec = run(f"ablate {mode}", bench_ablate.KERNELS_TIMED,
+                  lambda mode=mode: bench_ablate.stage_deltas(model, x, mode, iters=1))
+        if not (torch.equal(rec.pop("forward"), ref) and all(rec["restored"].values())):
+            raise AssertionError(f"(r) ablate {mode}: the forward is not the model's, or a "
+                                 f"stub was not restored: {rec['restored']}")
+    rec = run("segments", bench_segments.KERNELS_TIMED,
+              lambda: bench_segments.segments(model, x, iters=1))
+    got_taps = rec.pop("taps")
+    if not (torch.equal(rec.pop("forward"), ref)
+            and all(torch.equal(a, b) and torch.equal(c, d)
+                    for (a, c), (b, d) in zip(got_taps, taps))):
+        raise AssertionError("(r) segments: its stages composed, or its taps, differ from "
+                             "the model's forward")
+    del got_taps, taps
+    run("head_fine", bench_head_fine.KERNELS_TIMED,
+        lambda: bench_head_fine.head_fine(model, iters=1))
+    rec = run("temporal_swap", bench_temporal_swap.KERNELS_TIMED,
+              lambda: bench_temporal_swap.swap(model, x, iters=1))
+    if not (rec["restored"] and rec["sites"] == [2, 3]):
+        raise AssertionError(f"(r) temporal_swap: {rec}")
+    del model, x, ref
+    torch.cuda.empty_cache()
+    run("head_convs", bench_head_convs.KERNELS_TIMED, lambda: bench_head_convs.measure(iters=1))
+    mem = []
+    for enc in ("vits", "vitl"):
+        for fp32 in (False, True):
+            r = run(f"memory {enc} {'fp32' if fp32 else 'bf16'}", bench_memory.KERNELS_TIMED,
+                    lambda enc=enc, fp32=fp32: bench_memory.measure(enc, 518, fp32))
+            print(f"(r) memory {json.dumps(r)}", flush=True)
+            if not (r["weights_plus_frames_bytes"] == r["accounted_bytes"]
+                    and r["allocated_peak_bytes"] < r["card_bytes"] and r["output_finite"]):
+                raise AssertionError(f"(r) memory: {r}")
+            mem.append(r)
+    rows = run("mxu_geometry", bench_mxu_geometry.KERNELS_TIMED,
+               lambda: bench_mxu_geometry.rates(margin_s=PROBE_MARGIN_S))
+    if any(r["over_peak"] for r in rows):
+        raise AssertionError(f"(r) mxu_geometry: a rate over 105 % of its peak: {rows}")
+    run("int8_conv", bench_int8_conv.KERNELS_TIMED, lambda: bench_int8_conv.measure(iters=1))
+    run("residue", bench_residue.KERNELS_TIMED, lambda: bench_residue.measure(iters=2))
+    torch.cuda.empty_cache()
+    rec = run("drift_518", bench_drift_518.KERNELS_TIMED,
+              lambda: dict(bench_drift_518.measure(), card=cardname))
+    print(f"(r) drift {json.dumps(rec)}", flush=True)
+    numbers = [rec["frames"], *rec["src_hw"]] + [v for k, v in rec.items() if k.endswith("_frac")]
+    if not all(math.isfinite(v) for v in numbers):
+        raise AssertionError(f"(r) drift_518: {rec}")
+    tol1 = TOL["spatial_attention"]["bfloat16"]
+    rows = run("temporal_kernel", bench_temporal_kernel.KERNELS_TIMED,
+               lambda: bench_temporal_kernel.compare(iters=1))
+    bad = [r for r in rows if r["max_abs_err"] > TOL["temporal_attention"]["bfloat16"]]
+    rec = run("stock_flash", bench_stock_flash.KERNELS_TIMED,
+              lambda: bench_stock_flash.measure(iters=1))
+    bad += [rec] if rec["max_abs_diff"] > tol1 else []
+    rec = run("attn_kernel", bench_attn_kernel.KERNELS_TIMED["default"],
+              lambda: bench_attn_kernel.variants(iters=1))
+    # exp2 against base e is a change of function (log2 e rounded to bf16 in
+    # q's scale): held to the plain versions' own difference, each variant to
+    # its plain version.
+    tol5 = TOL["spatial_attention_qkv_fused"]["bfloat16"]
+    bad += [rec] if (max(rec["variant_diff"], *rec["variant_plain_err"].values()) > tol5
+                     or abs(rec["exp2_diff"] - rec["exp2_plain_diff"]) > tol5) else []
+    run("attn_kernel --int8", bench_attn_kernel.KERNELS_TIMED["int8"],
+        lambda: bench_attn_kernel.int8(iters=1))
+    if bad:
+        raise AssertionError(f"(r) an agreement over its kernel's tolerance: {bad}")
+    torch.cuda.empty_cache()
+    print(f"(r) the stage tools on {cardname}: wall s per tool {walls}; launches {total}; "
+          f"phase (r) {time.perf_counter() - t0:.1f} s", flush=True)
+    return recs, total
+
+
 def bench_phase():
     """(j): the port's bench for vits at --iters 3 --warmup 1 (its main, in
     this process); its record is printed, and a section error fails."""
@@ -2737,6 +2871,7 @@ def main() -> int:
     mesh_rec, launches_mesh = distributed_path(cardname)
     tp_rec, launches_tp, tp_local = model_axis_path(cardname, gen, record)
     serving_rec, launches_artifact = serving_artifact_path(cardname)
+    tools_rec, launches_stage_tools = stage_tools_path(cardname)
     timing(cardname)
     breakdown(cardname)
     breakdown(cardname, "int8")
@@ -2810,6 +2945,7 @@ def main() -> int:
             "launches_model_axis_int8": launches_tp["int8"][name],
             "launches_model_axis_train_step": launches_tp["train_step"][name],
             **{f"launches_{k}": n.get(name, 0) for k, n in launches_artifact.items()},
+            "launches_bench_tools": launches_stage_tools[name],
             **({"model_axis_local_shapes": tp_local[name]} if name in tp_local else {}),
             "max_abs_err": max(errs[(name, "bfloat16")], fp32 or 0.0),
             "max_abs_err_bf16": errs[(name, "bfloat16")],
@@ -2828,7 +2964,8 @@ def main() -> int:
         })
     print("long video, bench and train step summary: " + json.dumps(
         {"long_video": long_timings, "bench": bench_record, "train_step": train_rec,
-         "distributed": mesh_rec, "model_axis": tp_rec, "serving_artifact": serving_rec}),
+         "distributed": mesh_rec, "model_axis": tp_rec, "serving_artifact": serving_rec,
+         "stage_tools": tools_rec}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(cardname, flush=True)

@@ -302,7 +302,12 @@ print("HAS", all(pkg.__name__ + "." + m in sys.modules for m in (
     "data.landmarks", "data.loader", "benchmark.metrics", "benchmark.tae",
     "benchmark.evaluate", "benchmark.manifests", "benchmark.extract", "benchmark.infer",
     "tools.bench_train_step", "parallel.mesh", "parallel.distributed", "parallel.tensor", "app",
-    "tools.convert_checkpoint", "tools.export_checkpoint", "tools.validate_checkpoint")))
+    "tools.convert_checkpoint", "tools.export_checkpoint", "tools.validate_checkpoint",
+    "tools.bench_ablate", "tools.bench_segments", "tools.bench_head_fine",
+    "tools.bench_head_convs", "tools.bench_memory", "tools.bench_mxu_geometry",
+    "tools.bench_int8_conv", "tools.bench_residue", "tools.bench_drift_518",
+    "tools.bench_temporal_swap", "tools.bench_temporal_kernel", "tools.bench_stock_flash",
+    "tools.bench_attn_kernel", "tools.bench_decode")))
 print("LIBS", sorted(m for m in ("yaml", "PIL", "cv2") if m in sys.modules))
 """
 

@@ -805,3 +805,42 @@ def test_serving_artifact_launches_the_kernels_and_raises_without_them(card, tra
             run(state, win)
         with pytest.raises(build.KernelBuildError):
             live(win[0], None, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["default", "head", "temporal", "encoder"])
+def test_ablation_restores_the_model_bit_for_bit(card, mode):
+    """bench_ablate's stage_deltas on vits bf16 (one 1x8x112x112 window):
+    its unablated forward is the model's, and after every variant the
+    forward equals it again bit for bit, every stub put back; K1 and K2
+    launched."""
+    from video_depth_anything_torch.tools import bench_ablate
+
+    _, model, x = bench_ablate.window("vits", frames=8, size=112)
+    with torch.no_grad():
+        ref = model(x)
+    kernels.reset_launch_counts()
+    rec = bench_ablate.stage_deltas(model, x, mode, iters=1, chain=1)
+    launched = kernels.launch_counts()
+    assert torch.equal(rec["forward"], ref)
+    assert rec["restored"] and all(rec["restored"].values()), rec["restored"]
+    assert launched["spatial_attention"] > 0 and launched["temporal_attention"] > 0
+    with torch.no_grad():
+        assert torch.equal(model(x), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fp32", [False, True])
+def test_bench_memory_accounting(card, fp32):
+    """bench_memory at vits 112^2: the allocator's requested bytes for the
+    model and the window are their tensors' bytes exactly; the output is
+    the [1, 32, 112, 112] fp32 depth; the peak lies above weights, frames
+    and output and below the card's memory."""
+    from video_depth_anything_torch.tools import bench_memory
+
+    rec = bench_memory.measure("vits", 112, fp32)
+    assert rec["weights_plus_frames_bytes"] == rec["accounted_bytes"]
+    assert rec["output_bytes"] == 32 * 112 * 112 * 4 and rec["output_finite"]
+    assert (rec["weights_plus_frames_bytes"] + rec["output_bytes"] < rec["peak_bytes"]
+            <= rec["allocated_peak_bytes"] < rec["card_bytes"])
+    assert rec["ref_a100_vram_gb"] is None and rec["metric"] == "vits_hbm_gib_112"

@@ -116,7 +116,9 @@ class Scratch(nn.Module):
                 for i, f in enumerate(feats)]
 
     def output_head(self, path_1: torch.Tensor, out_hw, train: bool = False) -> torch.Tensor:
-        """output_conv1 -> bilinear upsample to out_hw -> output_conv2.
+        """output_conv1 -> bilinear upsample to out_hw -> output_conv2, one
+        method per stage (``head_conv1``, ``head_resize``, ``head_conv2a``,
+        ``head_conv2b``).
 
         fp32 input, or ``train`` (the JAX package's ``mixed_island=not
         train``): the reference's fp32 island, the upsampled map cast to
@@ -128,14 +130,32 @@ class Scratch(nn.Module):
         the bias to the fp32 accumulator, then rounds).
         Returns [N, H, W, 1] fp32.
         """
+        out = self.head_resize(self.head_conv1(path_1), out_hw)
+        island = out.dtype == torch.float32 or train
+        return self.head_conv2b(self.head_conv2a(out, island), island)
+
+    def head_conv1(self, x: torch.Tensor) -> torch.Tensor:
+        """output_conv1: 3x3, features -> features // 2."""
         c1 = self.output_conv1
-        out = vnn.conv2d(path_1, c1.weight, c1.bias, padding=1)
-        out = resize_bilinear_align_corners(out, out_hw)
-        c2a, c2b = self.output_conv2[0], self.output_conv2[2]
-        if out.dtype == torch.float32 or train:
-            out = vnn.relu(vnn.conv2d(out.float(), c2a.weight, c2a.bias, padding=1))
-            return vnn.relu(vnn.conv2d(out, c2b.weight, c2b.bias))
-        out = vnn.conv2d(out, c2a.weight, None, padding=1)
-        out = torch.relu(out.float() + c2a.bias.float()).to(torch.bfloat16)
-        out = torch.matmul(out.float(), c2b.weight.float().reshape(-1, 1))
+        return vnn.conv2d(x, c1.weight, c1.bias, padding=1)
+
+    def head_resize(self, x: torch.Tensor, out_hw) -> torch.Tensor:
+        """The bilinear upsample to the output size."""
+        return resize_bilinear_align_corners(x, out_hw)
+
+    def head_conv2a(self, x: torch.Tensor, island: bool) -> torch.Tensor:
+        """output_conv2's 3x3 to 32 and its ReLU: fp32 in the fp32 island,
+        else the bf16 conv with its bias and ReLU in fp32, rounded to bf16."""
+        c2a = self.output_conv2[0]
+        if island:
+            return vnn.relu(vnn.conv2d(x.float(), c2a.weight, c2a.bias, padding=1))
+        out = vnn.conv2d(x, c2a.weight, None, padding=1)
+        return torch.relu(out.float() + c2a.bias.float()).to(torch.bfloat16)
+
+    def head_conv2b(self, x: torch.Tensor, island: bool) -> torch.Tensor:
+        """output_conv2's 1x1 to 1 and the final ReLU, in fp32."""
+        c2b = self.output_conv2[2]
+        if island:
+            return vnn.relu(vnn.conv2d(x, c2b.weight, c2b.bias))
+        out = torch.matmul(x.float(), c2b.weight.float().reshape(-1, 1))
         return torch.relu(out + c2b.bias.float())

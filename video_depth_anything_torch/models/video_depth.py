@@ -54,13 +54,20 @@ class DPTHeadTemporal(nn.Module):
         depth [B*T, 14*ph, 14*pw, 1] fp32. With ``stats``, each motion
         module's calibration tree lands there under "0".."3". ``train``:
         the output head's full fp32 island (``Scratch.output_head``)."""
-        l1, l2, l3, l4 = self.refine_inputs(feats, ph, pw, b, t, stats)
+        layers = self.refine_inputs(feats, ph, pw, b, t, stats)
+        path_1 = self.cascade(layers, lambda i, path: self.tmod(i, path, b, t, stats))
+        return self.scratch.output_head(path_1, (14 * ph, 14 * pw), train=train)
+
+    def cascade(self, layers, between) -> torch.Tensor:
+        """The RefineNet cascade refinenet4 -> refinenet1 on l1..l4 ->
+        path_1; ``between(i, path)`` runs after refinenet4 (i = 2) and
+        refinenet3 (i = 3): the forward puts motion modules 2 and 3 there."""
+        l1, l2, l3, l4 = layers
         sc = self.scratch
-        path_4 = self.tmod(2, sc.refinenet4(l4, size=l3.shape[1:3]), b, t, stats)
-        path_3 = self.tmod(3, sc.refinenet3(path_4, l3, size=l2.shape[1:3]), b, t, stats)
+        path_4 = between(2, sc.refinenet4(l4, size=l3.shape[1:3]))
+        path_3 = between(3, sc.refinenet3(path_4, l3, size=l2.shape[1:3]))
         path_2 = sc.refinenet2(path_3, l2, size=l1.shape[1:3])
-        path_1 = sc.refinenet1(path_2, l1)
-        return sc.output_head(path_1, (14 * ph, 14 * pw), train=train)
+        return sc.refinenet1(path_2, l1)
 
     def tmod(self, i: int, feat: torch.Tensor, b: int, t: int,
              stats: dict | None = None) -> torch.Tensor:
@@ -76,6 +83,14 @@ class DPTHeadTemporal(nn.Module):
         """The taps projected, resized, through motion modules 0 and 1 and
         the 3x3 scratch convs: the RefineNet cascade's inputs l1..l4 (NHWC,
         ``features`` channels, 4x, 2x, 1x and 1/2x the patch grid)."""
+        layer_1, layer_2, layer_3, layer_4 = self.project(self.grids(feats, ph, pw))
+        layer_3 = self.tmod(0, layer_3, b, t, stats)
+        layer_4 = self.tmod(1, layer_4, b, t, stats)
+        return self.scratch.rn([layer_1, layer_2, layer_3, layer_4])
+
+    def grids(self, feats, ph: int, pw: int):
+        """The taps as [N, ph, pw, D] grids (after the ``use_clstoken``
+        readout)."""
         n, _, d = feats[0][0].shape
         if self.use_clstoken:   # readout: linear + GELU on [patch, cls]
             g = []
@@ -85,6 +100,11 @@ class DPTHeadTemporal(nn.Module):
                 g.append(y.reshape(n, ph, pw, d))
         else:
             g = [x.reshape(n, ph, pw, d) for x, _ in feats]
+        return g
+
+    def project(self, g):
+        """The 1x1 projections and resize layers of the 4 grids: layer_1..4
+        at 4x, 2x, 1x and 1/2x the patch grid, before the motion modules."""
         pj, rl = self.projects, self.resize_layers
 
         def project(i):
@@ -95,10 +115,7 @@ class DPTHeadTemporal(nn.Module):
         layer_3 = project(2)
         layer_4 = vnn.conv2d(project(3), rl[3].weight, rl[3].bias, stride=2,
                              padding=1)
-
-        layer_3 = self.tmod(0, layer_3, b, t, stats)
-        layer_4 = self.tmod(1, layer_4, b, t, stats)
-        return self.scratch.rn([layer_1, layer_2, layer_3, layer_4])
+        return layer_1, layer_2, layer_3, layer_4
 
 
 class VideoDepthAnything(nn.Module):

@@ -7,7 +7,8 @@ bytes at the HBM rate. ``exp_ms`` is the exponentials' own time at the
 special-function rate, stated beside an attention kernel's bound (at
 dh = 64 it equals the tensor-core term) but not part of it.
 
-``time_ms`` is the mean of a run of launches between two CUDA events.
+``time_ms`` is the mean of a run of launches between two CUDA events;
+``best_ms`` the best of several such runs.
 ``marginal_ms`` is the port of the chain timing of the JAX package's
 ``tools/bench_kernel_phases.py`` and ``tools/bench_kernel_ab.py``
 (``chain_fn`` / ``timed`` / ``_once``): it times a chain of c1 calls and
@@ -83,6 +84,28 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def best_ms(fn, chain: int, iters: int, graph: bool = False) -> float:
+    """The best of ``iters`` timings of a chain of ``chain`` calls, in ms
+    per call, after one call outside them: the JAX stage tools' best of
+    ITERS chains. With ``graph``, the chain is captured once into a CUDA
+    graph and each timing replays it (for calls shorter than the host's
+    cost of launching them)."""
+    fn()
+    if graph:
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(chain):
+                fn()
+        g.replay()
+        run = g.replay
+    else:
+        def run():
+            for _ in range(chain):
+                fn()
+    return min(_timed_ms(run) for _ in range(iters)) / chain
 
 
 def chain_lengths(est_call_ms: float, margin_s: float = TARGET_MARGIN_S) -> tuple[int, int]:
