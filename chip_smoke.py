@@ -188,7 +188,8 @@ printing no result, without either. Phases, each fatal on failure:
       bench_temporal_swap on one vitl bf16 1x32x518x518 window, then
       bench_head_convs, bench_memory (vits and vitl, bf16 and fp32),
       bench_mxu_geometry, bench_int8_conv, bench_residue, bench_drift_518
-      (vitl, 50 frames), bench_temporal_kernel, bench_stock_flash and
+      (vitl, 32 frames on numpy_state_dict(vitl, 0)'s weights, whose
+      weights_sha256 it prints), bench_temporal_kernel, bench_stock_flash and
       bench_attn_kernel (both modes). Launch counts are read around each
       tool, and each kernel a tool times must have launched. Fails if
       ablate's unablated forward, or segments' timed stages composed (the
@@ -199,7 +200,9 @@ printing no result, without either. Phases, each fatal on failure:
       a memory record's weights + frames are not the model's parameter and
       buffer bytes plus the window's exactly or its peak is not below the
       card's memory, if a GEMM rate reads over 105 % of its peak, if a
-      drift number is not finite, or if an agreement that temporal_kernel,
+      drift number is not finite, if bf16's drift is over the budget (max 5 %
+      / mean 0.2 % of the range) or int8's over VITL_INT8_MAX / _MEAN, if the
+      weights' digest is not VITL_NUMPY_SHA256, or if an agreement that temporal_kernel,
       stock_flash or attn_kernel prints is over that kernel's TOL.
   (f) timing: one window forward at 1x32x518x518 in bf16 and in int8,
       vits, vitl and vitg, and the cached steady state per new frame for vits;
@@ -286,6 +289,17 @@ TOL = {"spatial_attention": {"bfloat16": 4e-3, "float32": 1e-4},
 # int8's mean by 3-123 %.
 VITG_INT8_MAX, VITG_INT8_MEAN = 0.11, 0.0135
 VITG_INT8_BLOCK_L2 = 0.09
+
+# vitl at 518 in (r), bench_drift_518 on numpy_state_dict(vitl, 0)'s weights
+# (32 frames): the weights of the CPU comparison with the JAX package, whose
+# digest tests/test_torch_drift_518.py pins. bf16 is held to the budget
+# (utils/precision.py). int8 is held to a limit read on the card over four
+# seeds (tools/bench_drift_518.py --numpy_weights 0-3; NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md §2, §6): the largest max (0.09962, seed 0) and mean
+# (0.007183, seed 2) with 5 % above; on these weights JAX's own int8 drifts
+# as far, so the weights set it, not the port.
+VITL_NUMPY_SHA256 = "2897b7e0cd8e4a13d10e86506b39ef0c9e7dd3fd661ed1f9c3a66086f1610e8c"
+VITL_INT8_MAX, VITL_INT8_MEAN = 0.105, 0.0075
 
 
 def tolerance(kernel, name, ref):
@@ -2550,7 +2564,7 @@ def serving_artifact_path(cardname):
     recs["no_fallback"] = refused
     tmp = tempfile.mkdtemp(prefix="vda_kernel_cache_")
     try:
-        cache = bench_compile_cache.measure(tmp, "vits", 518)
+        cache = bench_compile_cache.measure(tmp, "vits", 518, timeout=900)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     recs["compile_cache"] = cache
@@ -2577,6 +2591,7 @@ def stage_tools_path(cardname):
         bench_ablate, bench_attn_kernel, bench_drift_518, bench_head_convs, bench_head_fine,
         bench_int8_conv, bench_memory, bench_mxu_geometry, bench_residue, bench_segments,
         bench_stock_flash, bench_temporal_kernel, bench_temporal_swap)
+    from video_depth_anything_torch.utils.precision import MAX_ERR_FRAC, MEAN_ERR_FRAC
 
     t0 = time.perf_counter()
     total = {name: 0 for name in kernels.KERNELS}
@@ -2649,11 +2664,19 @@ def stage_tools_path(cardname):
     run("residue", bench_residue.KERNELS_TIMED, lambda: bench_residue.measure(iters=2))
     torch.cuda.empty_cache()
     rec = run("drift_518", bench_drift_518.KERNELS_TIMED,
-              lambda: dict(bench_drift_518.measure(), card=cardname))
+              lambda: dict(bench_drift_518.measure(frames=32, numpy_weights=0), card=cardname))
     print(f"(r) drift {json.dumps(rec)}", flush=True)
     numbers = [rec["frames"], *rec["src_hw"]] + [v for k, v in rec.items() if k.endswith("_frac")]
-    if not all(math.isfinite(v) for v in numbers):
-        raise AssertionError(f"(r) drift_518: {rec}")
+    limits = {"bf16": (MAX_ERR_FRAC, MEAN_ERR_FRAC), "int8": (VITL_INT8_MAX, VITL_INT8_MEAN)}
+    over = [f"{mode} {k} {rec[f'{mode}_{k}_err_frac']} (limit {lim})"
+            for mode, pair in limits.items() for k, lim in zip(("max", "mean"), pair)
+            if not rec[f"{mode}_{k}_err_frac"] < lim]
+    if not all(math.isfinite(v) for v in numbers) or over:
+        raise AssertionError(f"(r) drift_518 over its limits: {over}; {rec}")
+    if rec["weights_sha256"] != VITL_NUMPY_SHA256:
+        raise AssertionError(f"(r) drift_518: numpy_state_dict(vitl, 0) drew other weights on "
+                             f"this machine ({rec['weights_sha256']}); its limits were read on "
+                             f"{VITL_NUMPY_SHA256}")
     tol1 = TOL["spatial_attention"]["bfloat16"]
     rows = run("temporal_kernel", bench_temporal_kernel.KERNELS_TIMED,
                lambda: bench_temporal_kernel.compare(iters=1))

@@ -84,6 +84,40 @@ def test_failed_section_still_prints_the_record_and_exits_1(monkeypatch, capsys)
     assert record["value"] > 0 and "e2e_ms_per_frame" not in record
 
 
+def test_bench_takes_vitg_without_a_baseline(monkeypatch, capsys):
+    """``--encoder vitg`` parses, and its records carry no baseline: the
+    reference publishes no vitg row (as for vitb). The CPU runs vitg's
+    layout (the SwiGLU encoder at dh 64) cut to two narrow blocks."""
+    import dataclasses
+
+    from video_depth_anything_torch import bench, config
+
+    assert bench.parse_args(["--encoder", "vitg"]).encoder == "vitg"
+    assert "vitg" not in bench.BASELINES_MS_PER_FRAME
+    full = config.get_model_config
+
+    def cut(name):
+        cfg = full(name)
+        vit = dataclasses.replace(cfg.vit, embed_dim=128, depth=2, num_heads=2)
+        return dataclasses.replace(cfg, features=32, out_channels=(32, 32, 32, 32),
+                                   taps=(0, 0, 1, 1), vit_override=vit)
+
+    monkeypatch.setattr(config, "get_model_config", cut)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)   # beside the JAX CPU client's threads
+    try:
+        rc = bench.main(["--device", "cpu", "--encoder", "vitg", "--size", "28", "--iters", "1",
+                         "--warmup", "0", "--chain", "1", "--no_e2e"])
+    finally:
+        torch.set_num_threads(threads)
+    assert rc == 0
+    record = _one_record(capsys.readouterr().out)
+    assert record["metric"] == "vitg_ms_per_frame_28" and record["value"] > 0
+    assert record["vs_baseline"] is None and record["int8_vs_baseline"] is None
+    assert record["vitg_ms_per_frame_28_int8"] > 0
+    assert record["steady_state_batched_windows"] == 2      # vitl's, as the JAX bench
+
+
 def test_bench_help_names_what_is_not_ported():
     res = _bench(["--help"])
     assert res.returncode == 0

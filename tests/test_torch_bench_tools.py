@@ -113,6 +113,25 @@ def test_drift_limits_exits_2_without_a_card(monkeypatch, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
+def test_drift_limits_plants_along_the_encoders_depth(monkeypatch):
+    """Without ``--plant`` the planted blocks follow the encoder's depth:
+    vitg's 0 10 20 30 39 as before, and vitl's 24 blocks 0 6 12 18 23."""
+    import torch
+    from video_depth_anything_torch.kernels import build
+    from video_depth_anything_torch.tools import drift_limits
+
+    assert drift_limits.default_plant(40) == [0, 10, 20, 30, 39]
+    assert drift_limits.default_plant(24) == [0, 6, 12, 18, 23]
+    seen = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(build, "build_all", lambda: None)
+    monkeypatch.setattr(drift_limits, "readings", lambda enc, seeds, plant, f: seen.append(plant))
+    for argv in (["--encoder", "vitl"], ["--encoder", "vitl", "--plant", "3"],
+                 ["--encoder", "vitl", "--plant"]):
+        assert drift_limits.main(argv) == 0
+    assert seen == [[0, 6, 12, 18, 23], [3], []]
+
+
 def test_drift_limits_plants_one_block_swap(tmp_path):
     """The planted fault swaps one block's fc1 / fc2 absmax and nothing
     else; the faulted file still passes the pipeline's geometry check."""

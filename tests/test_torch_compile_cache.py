@@ -155,3 +155,24 @@ def test_bench_tool_exits_without_a_card(tmp_path):
     assert bench_compile_cache.main([]) == 2
     assert bench_compile_cache.main(["--child", str(tmp_path)]) == 2
     assert os.listdir(tmp_path) == []
+
+
+def test_bench_tool_gives_its_children_the_timeout(monkeypatch, tmp_path):
+    """``--timeout`` (the JAX tool's, default 1800 s) bounds each child."""
+    import json
+
+    from video_depth_anything_torch.tools import bench_compile_cache, timing
+
+    assert bench_compile_cache.parse_args([]).timeout == 1800.0
+    assert bench_compile_cache.parse_args(["--timeout", "60"]).timeout == 60.0
+    seen = []
+
+    def run(cmd, **kw):
+        seen.append(kw["timeout"])
+        child = dict(build_s=1.0, first_window_s=2.0, nvcc_builds=len(seen) % 2)
+        return subprocess.CompletedProcess(cmd, 0, stdout=json.dumps(child), stderr="")
+
+    monkeypatch.setattr(bench_compile_cache.subprocess, "run", run)
+    monkeypatch.setattr(timing, "card_line", lambda: "a card, 700.00 W")
+    rec = bench_compile_cache.measure(str(tmp_path), timeout=60.0)
+    assert seen == [60.0, 60.0] and rec["cold_nvcc_builds"] == 1 and rec["warm_nvcc_builds"] == 0

@@ -98,6 +98,20 @@ def test_drift_report_has_the_jax_keys():
     assert all(math.isfinite(v) for k, v in rec.items() if k.endswith("_frac"))
 
 
+def test_drift_report_on_numpy_weights():
+    """``numpy_weights``: numpy_state_dict's weights, named by their
+    SHA-256, and the int8 run with fp32 activations beside the JAX keys."""
+    from video_depth_anything_torch.models import numpy_state_dict, state_dict_sha256
+
+    cfg = get_model_config("vits")
+    rec = bench_drift_518.measure(frames=34, src_hw=(42, 56), input_size=56, device="cpu",
+                                  cfg=cfg, numpy_weights=1)
+    assert list(rec)[-4:] == ["int8_fp32_max_err_frac", "int8_fp32_mean_err_frac",
+                              "numpy_weights", "weights_sha256"]
+    assert rec["weights_sha256"] == state_dict_sha256(numpy_state_dict(cfg, 1))
+    assert all(math.isfinite(v) for k, v in rec.items() if k.endswith("_frac"))
+
+
 def test_decode_runs_both_backends(monkeypatch, capsys):
     pytest.importorskip("cv2")
     from test_torch_video_io import stub_ffmpeg

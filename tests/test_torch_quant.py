@@ -23,6 +23,7 @@ encoder and motion module relative L2 < 0.05, pipeline max 8 % / mean 0.2 %
 of the depth range after affine alignment.
 """
 import copy
+import dataclasses
 import os
 import warnings
 
@@ -248,10 +249,17 @@ def test_vits_int8_blocks_match_jax(vits):
     version, the JAX CPU path dequantizes q8 and k8 into plain attention)
     from the same input tokens: relative L2 < 1e-3. Only the flips of one
     block's quant_act calls separate the two."""
-    cfg, params, model, x, jstats = vits
+    _int8_blocks_match_jax(*vits)
+
+
+def _int8_blocks_match_jax(cfg, params, model, x, jstats, floor=False):
+    """Each int8 block from the JAX stream's input tokens, against JAX's
+    ``_block_step``: at REL_VS_INT8, or (``floor``) within twice the block's
+    flip floor, the port's own block with every absmax scaled by 1 + 1e-6."""
     jenc = jquant.quantize_encoder(jax.tree.map(jnp.asarray, params["pretrained"]),
                                    jstats["encoder"], cfg.vit.depth)
     enc = quant.quantize_model(model, jstats).pretrained
+    nudged = quant.quantize_model(model, _scaled(jstats, 1 + 1e-6)).pretrained if floor else None
     assert isinstance(model.pretrained.blocks[0].attn.qkv, torch.nn.Linear)  # a copy
     tokens = jdinov2._embed_tokens(jenc, jnp.asarray(x[0]), cfg.vit)
     for i in range(cfg.vit.depth):
@@ -259,7 +267,9 @@ def test_vits_int8_blocks_match_jax(vits):
         want, _ = jdinov2._block_step(tokens, bp, num_heads=cfg.vit.num_heads, use_pallas=False)
         with torch.no_grad():
             got = enc.blocks[i](_t(tokens)).numpy()
-        assert _rel(got, want) < REL_VS_INT8, (i, _rel(got, want))
+            limit = (REL_VS_INT8 if nudged is None
+                     else 2 * _rel(nudged.blocks[i](_t(tokens)).numpy(), got))
+        assert _rel(got, want) < limit, (i, _rel(got, want), limit)
         tokens = want
 
 
@@ -291,7 +301,13 @@ def test_vits_encoder_int8_taps(vits):
 def test_motion_module_int8_matches_jax(vits, key):
     """Motion module 0 (dh = 24) and 3 (dh = 8), proj_out randomised: the
     stats tree, then the int8 module against JAX int8 and JAX fp32."""
-    _, params, model, _, _ = vits
+    _motion_module_int8_matches_jax(vits, key)
+
+
+def _motion_module_int8_matches_jax(fixture, key):
+    """Motion module ``key`` on random maps at its width: the stats tree at
+    rtol 1e-5, the int8 module against JAX int8 (REL_VS_INT8) and fp32."""
+    _, params, model, _, _ = fixture
     p = jax.tree.map(jnp.asarray, params["head"]["motion_modules"][key])
     c = params["head"]["motion_modules"][key]["temporal_transformer"]["proj_in"]["w"].shape[0]
     b, t = 1, 4
@@ -310,6 +326,42 @@ def test_motion_module_int8_matches_jax(vits, key):
         got = quant.quantize_motion_module(copy.deepcopy(mod), jst)(_t(x), b, t).numpy()
     assert _rel(got, jq) < REL_VS_INT8, _rel(got, jq)
     assert _rel(got, ref) < REL_VS_FP32, _rel(got, ref)
+
+
+def _vitl_cut(config):
+    """vitl's widths (1024 channels, 16 heads of dh 64, the 3072 fused qkv;
+    the head at 256 features, motion modules at 1024 and 256) cut to 2
+    blocks, tapped (0, 0, 1, 1)."""
+    base = config("vitl")
+    return dataclasses.replace(base, taps=(0, 0, 1, 1),
+                               vit_override=dataclasses.replace(base.vit, depth=2))
+
+
+@pytest.fixture(scope="module")
+def vitl():
+    cfg = _vitl_cut(j_config)
+    params = perturbed_params(cfg)
+    x = _rand((1, 4, 112, 112, 3), 14)
+    jstats = jax.device_get(jvd.calibrate_stats(jax.tree.map(jnp.asarray, params),
+                                                jnp.asarray(x), cfg, use_pallas=False))
+    return cfg, params, model_from_params(params, _vitl_cut(t_config)), x, jstats
+
+
+def test_vitl_int8_blocks_match_jax(vitl):
+    """vitl's int8 blocks (dh = 64, H = 16: K3's plain version on the port's
+    side, the fused 3072-wide qkv product) from JAX's input tokens. At this
+    width one block's flips alone pass 1e-3: scaling every absmax by
+    1 + 1e-6 moves block 0 by 2.5e-3 relative L2, the port's and JAX's
+    alike, and the port lies 1.8e-3 from JAX. So each block is held within
+    twice that flip floor, measured here (vits' blocks stay at 1e-3)."""
+    _int8_blocks_match_jax(*vitl, floor=True)
+
+
+@pytest.mark.parametrize("key", ["0", "3"])
+def test_vitl_motion_module_int8_matches_jax(vitl, key):
+    """vitl's motion modules 0 (1024 channels, dh 128) and 3 (256, dh 32)
+    in int8 against JAX int8 and fp32, proj_out randomised."""
+    _motion_module_int8_matches_jax(vitl, key)
 
 
 # ---- pipeline -----------------------------------------------------------------

@@ -284,3 +284,25 @@ def test_bench_tool_exits_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     assert bench_serving_artifact.main(["--encoder", "vits", "--iters", "1"]) == 2
+
+
+def test_bench_tool_takes_the_input_size(monkeypatch, capsys):
+    """``--input_size`` (the JAX tool's, default 518) reaches ``measure``,
+    which exports and times at the pipeline's network size for it."""
+    from video_depth_anything_torch.kernels import build
+    from video_depth_anything_torch.tools import bench_serving_artifact as tool
+
+    assert tool.parse_args([]).input_size == 518
+    seen = {}
+
+    def measure(*args, **kw):
+        seen.update(args=args, kw=kw)
+        return {"metric": f"{args[0]}_serving_artifact_{kw['input_size']}"}
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(build, "build_all", lambda: None)
+    monkeypatch.setattr(tool, "measure", measure)
+    assert tool.main(["--encoder", "vits", "--src_hw", "480", "640", "--input_size", "280"]) == 0
+    assert seen["args"][:2] == ("vits", [480, 640]) and seen["kw"]["input_size"] == 280
+    assert json.loads(capsys.readouterr().out)["metric"] == "vits_serving_artifact_280"
+    assert se.geometry((480, 640), 280) == (280, 378)

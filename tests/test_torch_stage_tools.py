@@ -295,6 +295,47 @@ def test_split_output_head_is_the_unsplit_one(toy, dtype, train):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_output_head_frees_the_full_resolution_map_as_the_unsplit_one(toy, dtype, monkeypatch):
+    """The resized map (vits bf16 at 1x32x518²: 0.51 GiB) dies where the
+    unsplit body let it die: in the bf16 path once output_conv2's 3x3 has
+    read it, before the fp32 temporaries; in the fp32 island before the 1x1.
+    Holding it through the stages raised the vits bf16 window's peak from
+    3.29 to 3.80 GiB on the card."""
+    import copy
+    import weakref
+
+    from video_depth_anything_torch.models import dpt
+
+    sc = copy.deepcopy(toy[0].head.scratch).to(dtype)
+    path_1 = torch.randn(2, 8, 8, sc.output_conv1.weight.shape[1],
+                         generator=torch.Generator().manual_seed(6)).to(dtype)
+    resized, alive = [], []
+    head_resize, head_conv2b, relu = dpt.Scratch.head_resize, dpt.Scratch.head_conv2b, torch.relu
+
+    def spy_resize(self, x, out_hw):
+        out = head_resize(self, x, out_hw)
+        resized.append(weakref.ref(out))
+        return out
+
+    def spy_relu(x):        # bf16: the fp32 bias add's ReLU in head_conv2a, then the last
+        alive.append(("relu", resized[0]() is not None))
+        return relu(x)
+
+    def spy_conv2b(self, x, island):
+        alive.append(("conv2b", resized[0]() is not None))
+        return head_conv2b(self, x, island)
+
+    monkeypatch.setattr(dpt.Scratch, "head_resize", spy_resize)
+    monkeypatch.setattr(dpt.Scratch, "head_conv2b", spy_conv2b)
+    monkeypatch.setattr(torch, "relu", spy_relu)
+    with torch.no_grad():
+        sc.output_head(path_1, (56, 56))
+    want = [("conv2b", False)] if dtype == torch.float32 else [("relu", False), ("conv2b", False),
+                                                                ("relu", False)]
+    assert alive == want
+
+
 def test_patched_restores_after_an_error(toy):
     model, x, ref = toy
     patches = bench_ablate.variants("default", model.cfg)[0][3]

@@ -128,11 +128,13 @@ class Scratch(nn.Module):
         PyTorch has no bf16-in / fp32-out convolution, so the 3x3 conv's
         output rounds to bf16 before the fp32 bias (the JAX island adds
         the bias to the fp32 accumulator, then rounds).
-        Returns [N, H, W, 1] fp32.
+        Returns [N, H, W, 1] fp32. The stages are called nested, so no
+        name here holds the full-resolution map: ``head_conv2a`` frees it
+        once its conv has read it.
         """
-        out = self.head_resize(self.head_conv1(path_1), out_hw)
-        island = out.dtype == torch.float32 or train
-        return self.head_conv2b(self.head_conv2a(out, island), island)
+        island = path_1.dtype == torch.float32 or train
+        return self.head_conv2b(
+            self.head_conv2a(self.head_resize(self.head_conv1(path_1), out_hw), island), island)
 
     def head_conv1(self, x: torch.Tensor) -> torch.Tensor:
         """output_conv1: 3x3, features -> features // 2."""
@@ -150,6 +152,7 @@ class Scratch(nn.Module):
         if island:
             return vnn.relu(vnn.conv2d(x.float(), c2a.weight, c2a.bias, padding=1))
         out = vnn.conv2d(x, c2a.weight, None, padding=1)
+        del x           # the full-resolution map, before the fp32 temporaries
         return torch.relu(out.float() + c2a.bias.float()).to(torch.bfloat16)
 
     def head_conv2b(self, x: torch.Tensor, island: bool) -> torch.Tensor:

@@ -12,8 +12,10 @@ Module attribute paths are the original checkpoint's keys, so a reference
 """
 from __future__ import annotations
 
+import hashlib
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -22,7 +24,7 @@ from ..ops import nn as vnn
 from ..ops.resize import resize_bilinear_align_corners
 from .dinov2 import DinoVisionTransformer
 from .dpt import Scratch
-from .motion import TemporalModule
+from .motion import TemporalModule, sinusoidal_pe
 
 
 class DPTHeadTemporal(nn.Module):
@@ -229,6 +231,99 @@ def init_random(model: VideoDepthAnything, seed: int = 0) -> VideoDepthAnything:
         if "proj_out" in name or "cls_token" in name:
             p.add_(0.02 * torch.randn(p.shape, generator=gen(p), device=p.device,
                                       dtype=p.dtype))
+    return model
+
+
+def numpy_state_dict(cfg: ModelConfig, seed: int = 0) -> dict[str, np.ndarray]:
+    """Seeded random weights that every machine draws alike: the model's
+    ``state_dict()``, in its key order, from one
+    ``np.random.default_rng(seed)``, fp32 host arrays.
+
+    ``init_random``'s rules, drawn with numpy: encoder linears and the pos
+    embed truncated normal (std 0.02, cut at 2 std, out-of-range draws
+    redrawn), the patch embed truncated normal (std sqrt(1/fan_in)), head
+    convs and linears uniform at torch's default bounds, norms 1/0,
+    LayerScale at init_values, the APE tables sinusoidal; proj_out is 0.02
+    N(0, 1) (zero plus its perturbation), cls_token 1e-6 N + 0.02 N, and
+    BatchNorm (``use_bn``) weight 1 + 0.1 N, bias and running mean 0.1 N,
+    running var 1 + 0.5 U(0, 1). The dict loads with ``strict=True`` into
+    the model, and its keys are the reference checkpoint's. Host memory
+    only (about 1.5 GB for vitl): vitg stays on ``init_random``.
+    """
+    with torch.device("meta"):
+        shapes = VideoDepthAnything(cfg)
+    mods = dict(shapes.named_modules())
+    rng = np.random.default_rng(seed)
+
+    def normal(shape):
+        return rng.standard_normal(shape, dtype=np.float32)
+
+    def trunc(shape, std):
+        x = normal(shape)
+        out = np.abs(x) > 2
+        while out.any():
+            x[out] = normal(int(out.sum()))
+            out = np.abs(x) > 2
+        return np.float32(std) * x
+
+    def uniform(shape, bound):
+        return np.float32(bound) * (2 * rng.random(shape, dtype=np.float32) - 1)
+
+    sd = {}
+    for key, t in shapes.state_dict().items():
+        prefix, _, leaf = key.rpartition(".")
+        m, shape = mods[prefix], tuple(t.shape)
+        if isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+            v = np.full(shape, 1.0 if leaf == "weight" else 0.0, np.float32)
+        elif isinstance(m, nn.BatchNorm2d):
+            if leaf == "num_batches_tracked":
+                v = np.zeros(shape, np.int64)
+            elif leaf == "running_var":
+                v = 1 + 0.5 * rng.random(shape, dtype=np.float32)
+            else:
+                v = np.float32(leaf == "weight") + np.float32(0.1) * normal(shape)
+        elif isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+            w = m.weight.shape
+            fan_in = (w[1] * w[2] * w[3] if isinstance(m, nn.ConvTranspose2d)
+                      else math.prod(w[1:]))
+            if prefix.endswith("proj_out"):
+                v = np.float32(0.02) * normal(shape)
+            elif not key.startswith("pretrained."):
+                bound = math.sqrt(1.0 / fan_in)
+                v = uniform(shape, bound * math.sqrt(3) if leaf == "weight" else bound)
+            elif leaf == "bias":
+                v = np.zeros(shape, np.float32)
+            else:
+                v = trunc(shape, 0.02 if isinstance(m, nn.Linear) else math.sqrt(1.0 / fan_in))
+        elif leaf == "pos_embed":
+            v = trunc(shape, 0.02)
+        elif leaf == "cls_token":
+            v = np.float32(1e-6) * normal(shape)
+            v += np.float32(0.02) * normal(shape)
+        elif leaf == "mask_token":
+            v = np.zeros(shape, np.float32)
+        elif leaf == "gamma":
+            v = np.full(shape, cfg.vit.init_values, np.float32)
+        elif leaf == "pe":
+            v = sinusoidal_pe(shape[2], shape[1])
+        else:
+            raise ValueError(f"numpy_state_dict: no rule for {key}")
+        sd[key] = v if v.dtype == np.int64 else v.astype(np.float32, copy=False)
+    return sd
+
+
+def state_dict_sha256(sd: dict) -> str:
+    """SHA-256 of a state dict's bytes (NumPy arrays or CPU tensors), in
+    key order: two readings on it used the same weights."""
+    h = hashlib.sha256()
+    for v in sd.values():
+        h.update(np.ascontiguousarray(np.asarray(v)).tobytes())
+    return h.hexdigest()
+
+
+def load_numpy_state_dict(model: VideoDepthAnything, sd: dict) -> VideoDepthAnything:
+    """``numpy_state_dict``'s arrays into ``model`` (on any device), strictly."""
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
     return model
 
 

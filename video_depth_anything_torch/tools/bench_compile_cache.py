@@ -1,7 +1,7 @@
 """Card bench of the kernel build cache: a cold process against a warm one.
 
     python -m video_depth_anything_torch.tools.bench_compile_cache \\
-        [--encoder vits] [--size 518] [--json out.jsonl]
+        [--encoder vits] [--size 518] [--timeout 1800] [--json out.jsonl]
 
 Runs this file twice as a fresh child process against one new temporary
 cache directory (``utils/compile_cache.py``): the first finds it empty and
@@ -9,7 +9,8 @@ builds every kernel library with nvcc, the second loads them. Each child
 reports the wall seconds of ``build.build_all()`` and of its first window
 (``--encoder`` with random weights from seed 0, one window of 32 random
 frames at ``--size``^2 through the pipeline, bf16, synchronised), and the
-nvcc builds it ran. Prints one JSON line: ``cold_s`` and ``warm_s`` (build
+nvcc builds it ran; a child that runs past ``--timeout`` seconds fails the
+bench. Prints one JSON line: ``cold_s`` and ``warm_s`` (build
 plus first window), ``speedup``, each child's parts and builds, each
 child's wall seconds as the parent saw them (interpreter start and CUDA
 initialisation included), and the card's name and power limit. The warm
@@ -55,7 +56,8 @@ def child(cache_dir: str, encoder: str, size: int) -> dict:
                 libraries=sorted(os.listdir(cache_dir)), finite=bool(np.isfinite(depth).all()))
 
 
-def measure(cache_dir: str, encoder: str = "vits", size: int = 518) -> dict:
+def measure(cache_dir: str, encoder: str = "vits", size: int = 518,
+            timeout: float = 1800.0) -> dict:
     """The cold and the warm child against ``cache_dir`` (module docstring)."""
     from .timing import card_line
 
@@ -65,7 +67,7 @@ def measure(cache_dir: str, encoder: str = "vits", size: int = 518) -> dict:
         res = subprocess.run([sys.executable, "-m", "video_depth_anything_torch.tools."
                               "bench_compile_cache", "--child", cache_dir, "--encoder", encoder,
                               "--size", str(size)], capture_output=True, text=True, cwd=_ROOT,
-                             timeout=900)
+                             timeout=timeout)
         wall = time.perf_counter() - t0
         if res.returncode != 0:
             raise RuntimeError(f"bench_compile_cache child failed:\n{res.stdout}\n{res.stderr}")
@@ -79,13 +81,19 @@ def measure(cache_dir: str, encoder: str = "vits", size: int = 518) -> dict:
                 cold=cold, warm=warm)
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--encoder", default="vits", choices=["vits", "vitb", "vitl", "vitg"])
     ap.add_argument("--size", type=int, default=518)
+    ap.add_argument("--timeout", type=float, default=1800.0,
+                    help="seconds each child process may run")
     ap.add_argument("--json", default=None, help="append the record to this JSON-lines file")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -95,7 +103,7 @@ def main(argv=None) -> int:
         print(json.dumps(child(args.child, args.encoder, args.size)), flush=True)
         return 0
     with tempfile.TemporaryDirectory() as tmp:
-        rec = measure(tmp, args.encoder, args.size)
+        rec = measure(tmp, args.encoder, args.size, args.timeout)
     line = json.dumps(rec)
     print(line, flush=True)
     if args.json:

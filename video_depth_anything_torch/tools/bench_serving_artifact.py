@@ -1,19 +1,21 @@
 """Card bench of the serving artifact against the live window program.
 
     python -m video_depth_anything_torch.tools.bench_serving_artifact \\
-        [--encoder vitl] [--src_hw 518 518] [--fp32] [--int8] [--iters 5] \\
-        [--no_cpu_trace] [--json out.jsonl]
+        [--encoder vitl] [--src_hw 518 518] [--input_size 518] [--fp32] [--int8] \\
+        [--iters 5] [--no_cpu_trace] [--json out.jsonl]
 
 Exports the window program (``utils/serving_export.py``) on the card,
 saves and loads it, and runs it and the live program (the pipeline's plain
-mode, ``PlainWindows``) on one random window (C = 1, seed 0; random
+mode, ``PlainWindows``) at the network size the pipeline derives from
+(``src_hw``, ``input_size``) on one random window (C = 1, seed 0; random
 weights from seed 0; int8 calibrated on that window). Then, unless
 ``--no_cpu_trace``, it exports a second artifact on the CPU and moves it
 to the card (``load_exported(path, device="cuda")``): the port's
 counterpart of the JAX tool's ``use_pallas`` A/B, showing that where the
 artifact was traced does not change which kernels it serves.
 
-Prints one JSON line: for each program the median ms per frame over
+Prints one JSON line, its metric named by the input size as the JAX
+tool's (``<encoder>_serving_artifact_<input_size>``): for each program the median ms per frame over
 ``--iters`` calls (host clock, each call synchronised; a window is 32
 frames) and its runs, the idle share of ``--iters`` more calls under
 torch.profiler (1 - kernels' busy time / wall time; busy and wall per
@@ -68,7 +70,7 @@ def _launches(call):
 
 
 def measure(encoder: str = "vitl", src_hw=(518, 518), fp32: bool = False, int8: bool = False,
-            iters: int = 5, cpu_trace: bool = True) -> dict:
+            iters: int = 5, cpu_trace: bool = True, input_size: int = 518) -> dict:
     """The bench's record (module docstring)."""
     import numpy as np
 
@@ -81,7 +83,7 @@ def measure(encoder: str = "vitl", src_hw=(518, 518), fp32: bool = False, int8: 
 
     cfg = get_model_config(encoder)
     src_hw = tuple(src_hw)
-    net_hw = se.geometry(src_hw)
+    net_hw = se.geometry(src_hw, input_size)
     dtype = se.serving_dtype(fp32)
     quant = "int8" if int8 else None
     model = build_model(cfg, seed=0, device="cuda")
@@ -100,14 +102,16 @@ def measure(encoder: str = "vitl", src_hw=(518, 518), fp32: bool = False, int8: 
             state_equal = None
     live = PlainWindows(live_model, net_hw, src_hw, dtype)
     programs = {"live": lambda: live(frames.reshape(-1, *frames.shape[2:]), None, 1)}
-    rec: dict = dict(card=card_line(), encoder=encoder, src_hw=list(src_hw),
+    rec: dict = dict(metric=f"{encoder}_serving_artifact_{input_size}", card=card_line(),
+                     encoder=encoder, src_hw=list(src_hw), input_size=input_size,
                      net_hw=list(net_hw), dtype=str(dtype).split(".")[1], quant=quant,
                      windows_per_call=1, frames_per_call=32, int8_state_equal=state_equal)
     traces = [("artifact", "cuda")] + ([("artifact_cpu_traced", "cpu")] if cpu_trace else [])
     with tempfile.TemporaryDirectory() as tmp:
         for name, device in traces:
             t0 = time.perf_counter()
-            ep = se.export_window_program(cfg, src_hw, fp32=fp32, device=device, quant=quant)
+            ep = se.export_window_program(cfg, src_hw, input_size, fp32=fp32, device=device,
+                                          quant=quant)
             export_s = time.perf_counter() - t0
             path = os.path.join(tmp, f"{name}.pt2")
             t0 = time.perf_counter()
@@ -137,16 +141,23 @@ def measure(encoder: str = "vitl", src_hw=(518, 518), fp32: bool = False, int8: 
     return rec
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--encoder", default="vitl", choices=["vits", "vitb", "vitl", "vitg"])
     ap.add_argument("--src_hw", type=int, nargs=2, default=[518, 518], metavar=("H", "W"))
+    ap.add_argument("--input_size", type=int, default=518,
+                    help="the pipeline's input size; the network size follows the "
+                         "pipeline's rule (preprocess.effective_input_size)")
     ap.add_argument("--fp32", action="store_true")
     ap.add_argument("--int8", action="store_true")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--no_cpu_trace", action="store_true")
     ap.add_argument("--json", default=None, help="append the record to this JSON-lines file")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_serving_artifact: no CUDA device", file=sys.stderr)
         return 2
@@ -154,7 +165,7 @@ def main(argv=None) -> int:
 
     build.build_all()
     rec = measure(args.encoder, args.src_hw, args.fp32, args.int8, args.iters,
-                  cpu_trace=not args.no_cpu_trace)
+                  cpu_trace=not args.no_cpu_trace, input_size=args.input_size)
     line = json.dumps(rec)
     print(line, flush=True)
     if args.json:

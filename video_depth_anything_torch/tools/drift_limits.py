@@ -11,7 +11,9 @@ mean error as fractions of the fp32 depth range after affine alignment),
 and each encoder block's int8 error on its own (``block_rel_l2``: the
 block's residual branch in int8 against bf16 on the bf16 stream's input,
 first window). For the first seed it then plants two faults in the int8
-side file, one run each, for each block named by ``--plant``: the block's
+side file, one run each, for each block named by ``--plant`` (by default
+the first, the last and the quarters of the encoder's depth: 0 10 20 30 39
+for vitg, 0 6 12 18 23 for vitl): the block's
 ``fc1`` and ``fc2`` absmaxes swapped (the ``w12`` and ``w3`` inputs on
 vitg), and its ``fc2`` absmax scaled by ``--factor``. The last line is one
 JSON record. TF32 is off, as in chip_smoke, so fp32 is true fp32. Needs a
@@ -47,6 +49,11 @@ def scale_slot(src: str, dst: str, block: int, factor: float, site: str = "fc2")
         arrays = {k: np.array(data[k]) for k in data.files}
     arrays[f"encoder/{site}"][block] *= np.float32(factor)
     np.savez(dst, **arrays)
+
+
+def default_plant(depth: int) -> list[int]:
+    """The blocks planted by default: 0, the quarters and the last."""
+    return sorted({0, depth // 4, depth // 2, 3 * depth // 4, depth - 1})
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -146,8 +153,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--encoder", default="vitg", choices=["vits", "vitb", "vitl", "vitg"])
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2, 3])
-    ap.add_argument("--plant", type=int, nargs="*", default=[0, 10, 20, 30, 39],
-                    help="blocks given a planted fault, one run per block and fault")
+    ap.add_argument("--plant", type=int, nargs="*", default=None,
+                    help="blocks given a planted fault, one run per block and fault "
+                         "(default: default_plant(the encoder's depth))")
     ap.add_argument("--factor", type=float, default=0.5,
                     help="the planted scale of a block's fc2 absmax")
     args = ap.parse_args(argv)
@@ -158,7 +166,11 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     from ..kernels import build
     build.build_all()
-    print(json.dumps(readings(args.encoder, args.seeds, args.plant, args.factor)), flush=True)
+    plant = args.plant
+    if plant is None:
+        from ..config import get_model_config
+        plant = default_plant(get_model_config(args.encoder).vit.depth)
+    print(json.dumps(readings(args.encoder, args.seeds, plant, args.factor)), flush=True)
     return 0
 
 
