@@ -189,8 +189,10 @@ printing no result, without either. Phases, each fatal on failure:
       bench_head_convs, bench_memory (vits and vitl, bf16 and fp32),
       bench_mxu_geometry, bench_int8_conv, bench_residue, bench_drift_518
       (vitl, 32 frames on numpy_state_dict(vitl, 0)'s weights, whose
-      weights_sha256 it prints), bench_temporal_kernel, bench_stock_flash and
-      bench_attn_kernel (both modes). Launch counts are read around each
+      weights_sha256 it prints), drift_split on the same weights (a reading:
+      vitl's bf16 drift all in bf16, the encoder alone, the head alone),
+      bench_temporal_kernel, bench_stock_flash and bench_attn_kernel (both
+      modes). Launch counts are read around each
       tool, and each kernel a tool times must have launched. Fails if
       ablate's unablated forward, or segments' timed stages composed (the
       head on its taps, then finish), is not VideoDepthAnything.forward's
@@ -202,7 +204,8 @@ printing no result, without either. Phases, each fatal on failure:
       card's memory, if a GEMM rate reads over 105 % of its peak, if a
       drift number is not finite, if bf16's drift is over the budget (max 5 %
       / mean 0.2 % of the range) or int8's over VITL_INT8_MAX / _MEAN, if the
-      weights' digest is not VITL_NUMPY_SHA256, or if an agreement that temporal_kernel,
+      weights' digest (drift_518's or drift_split's) is not VITL_NUMPY_SHA256,
+      if a split number is not finite, or if an agreement that temporal_kernel,
       stock_flash or attn_kernel prints is over that kernel's TOL.
   (f) timing: one window forward at 1x32x518x518 in bf16 and in int8,
       vits, vitl and vitg, and the cached steady state per new frame for vits;
@@ -2590,7 +2593,7 @@ def stage_tools_path(cardname):
     from video_depth_anything_torch.tools import (
         bench_ablate, bench_attn_kernel, bench_drift_518, bench_head_convs, bench_head_fine,
         bench_int8_conv, bench_memory, bench_mxu_geometry, bench_residue, bench_segments,
-        bench_stock_flash, bench_temporal_kernel, bench_temporal_swap)
+        bench_stock_flash, bench_temporal_kernel, bench_temporal_swap, drift_split)
     from video_depth_anything_torch.utils.precision import MAX_ERR_FRAC, MEAN_ERR_FRAC
 
     t0 = time.perf_counter()
@@ -2677,6 +2680,16 @@ def stage_tools_path(cardname):
         raise AssertionError(f"(r) drift_518: numpy_state_dict(vitl, 0) drew other weights on "
                              f"this machine ({rec['weights_sha256']}); its limits were read on "
                              f"{VITL_NUMPY_SHA256}")
+    # A reading, held to nothing but its weights and finite numbers: where
+    # the bf16 drift on these weights comes from, encoder or head.
+    rec = run("drift_split", drift_split.KERNELS_TIMED,
+              lambda: drift_split.split("vitl", numpy_weights=0))
+    print(f"(r) drift_split {json.dumps(rec)}", flush=True)
+    numbers = [v for k in ("all_bf16", "encoder_bf16", "head_bf16") for v in rec[k].values()]
+    if (rec["weights_sha256"] != VITL_NUMPY_SHA256
+            or not all(math.isfinite(v) for v in numbers + sum(rec["tap_rel_l2"], []))):
+        raise AssertionError(f"(r) drift_split: other weights or a number not finite: {rec}")
+    torch.cuda.empty_cache()
     tol1 = TOL["spatial_attention"]["bfloat16"]
     rows = run("temporal_kernel", bench_temporal_kernel.KERNELS_TIMED,
                lambda: bench_temporal_kernel.compare(iters=1))

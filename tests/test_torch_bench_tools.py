@@ -2,8 +2,10 @@
 without a card (it measures nothing here), and its shape lists are
 PERF.md's kernel-table shapes for K3 and K2, the ones the old / new runs
 are compared at."""
+import math
 import sys
 
+import pytest
 import torch
 
 from video_depth_anything_torch.tools import bench_wgmma
@@ -101,6 +103,40 @@ def test_drift_split_exits_2_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert drift_split.main(["--encoder", "vitg"]) == 2
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_drift_split_takes_numpy_weights_and_exits_2_without_a_card(monkeypatch, capsys):
+    """``--numpy_weights S`` parses (a seed, an integer) and the tool still
+    runs nothing without a card."""
+    import torch
+    from video_depth_anything_torch.tools import drift_split
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert drift_split.main(["--encoder", "vitl", "--numpy_weights", "0"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as err:
+        drift_split.main(["--numpy_weights", "zero"])
+    assert err.value.code == 2 and "--numpy_weights" in capsys.readouterr().err
+
+
+def test_drift_split_on_numpy_weights_on_the_cpu():
+    """``split`` on numpy_state_dict's weights, on the CPU at 56²: the three
+    drifts finite, one pair of relative L2s per tap, the weights named by
+    their SHA-256."""
+    from video_depth_anything_torch.config import get_model_config
+    from video_depth_anything_torch.models import numpy_state_dict, state_dict_sha256
+    from video_depth_anything_torch.tools import drift_split
+
+    cfg = get_model_config("vits")
+    rec = drift_split.split("vits", device="cpu", numpy_weights=1, size=56)
+    assert rec["card"] == "cpu" and rec["encoder"] == "vits" and rec["numpy_weights"] == 1
+    assert rec["weights_sha256"] == state_dict_sha256(numpy_state_dict(cfg, 1))
+    drifts = [rec[k][m] for k in ("all_bf16", "encoder_bf16", "head_bf16")
+              for m in ("max_err_frac", "mean_err_frac")]
+    assert all(math.isfinite(v) and v > 0 for v in drifts), rec
+    assert len(rec["tap_rel_l2"]) == len(cfg.intermediate_layer_idx)
+    assert all(0 < v < 0.1 for pair in rec["tap_rel_l2"] for v in pair), rec["tap_rel_l2"]
+    assert rec["depth_range"] > 0
 
 
 def test_drift_limits_exits_2_without_a_card(monkeypatch, capsys):
