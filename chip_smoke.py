@@ -15,7 +15,8 @@ printing no result, without either. Phases, each fatal on failure:
       (mbarrier) instructions in each library's SASS (cuobjdump -sass).
       Fails if K1's, K4's, K6's, the option instances' (K1/K4/K5's
       mxu_denom and exp2), T1's, T2's or T3's library lacks HGMMA or
-      UTMALDG, K3's IGMMA or UTMALDG, K2's HMMA, if T2's or T3's has HMMA
+      UTMALDG, K3's IGMMA or UTMALDG, K2's or K2's backward's HMMA, if T2's
+      or T3's has HMMA
       (neither runs mma.sync), or if cuobjdump is missing.
   (c) K1 spatial attention against its plain version, bf16 and fp32, at
       the encoders' shapes, vitg's [32, 1370, 1536] H 24 (and S 1371)
@@ -103,12 +104,15 @@ printing no result, without either. Phases, each fatal on failure:
       within the drift budget of fp32, 16 EXR frames (zip and none) and one
       frame's PLY read back bit for bit.
   (n) the training path, after (k): K2 under a gradient (the autograd
-      Function: K2 forward, the plain version's gradient backward) at vits's
-      four motion-module shapes, T = 20, bf16 and fp32: output against the
-      plain version at K2's tolerance, dq / dk / dv equal to the plain
-      version's under autograd (the plumbing) and within K2's tolerance of
-      the closed-form gradient relative to each gradient's max |g|, the
-      backward timed per shape; K1 (and its launch), K3, K4, K5 and K6
+      Function: K2 forward, the backward kernel of
+      csrc/temporal_attention_backward.cu, one launch per backward) at
+      vits's four motion-module shapes at T = 20, vitl's dh 128 and dh 32
+      at T = 32 and T = 1, bf16 and fp32: output against the plain version
+      at K2's tolerance, dq / dk / dv within K2's tolerance of the plain
+      version's autograd and of the closed-form gradient, relative to each
+      gradient's max |g|; bf16 timed per shape (the kernel from a CUDA
+      graph, the plain recomputation, the Function's backward, SDPA's
+      forward and backward, the bound); K1 (and its launch), K3, K4, K5 and K6
       raise under a gradient and launch nothing; one fp32 train step (vits
       full width and depth, 20 frames at 112^2, TF32 off; the weights and
       clip of tools/bench_train_step.py) on the card against the CPU plain
@@ -116,14 +120,16 @@ printing no result, without either. Phases, each fatal on failure:
       (utils/kinks.py; a side moved only at an input within 1e-4 of its
       map's max of 0): loss within 1e-4 relative, every head gradient
       within 1e-3 of its leaf's max, no head tensor with a zero gradient but refinenet4's
-      unused first unit (0 in JAX too), 12 K1 and 8 K2 launches; 9 steps
+      unused first unit (0 in JAX too), 12 K1, 8 K2 and 8 K2 backward
+      launches; 9 steps
       at lr 1e-4 lower the loss, each step's loss differs and a gradient
       passes the final ReLU at each, the encoder unchanged bit for bit;
       the full-size step (vits, 1x20x518x518, bf16 with fp32 masters,
       lstsq SSI + 10 TGM, lr 1e-4; tools/bench_train_step.py, 2 warm
       steps, the median of 5): ms per step split into encoder, head
       forward and loss, backward and optimizer, the K2 backward's ms and
-      share, peak memory, launches per step, every loss finite and
+      share (and its kernel's per step), peak memory, launches per step
+      (the K2 backward's 8 among them), every loss finite and
       different, a gradient through the final ReLU at each step; a
       checkpoint of that state loaded into another, the next step of each
       equal bit for bit, with a new loss and a gradient through the ReLU.
@@ -214,10 +220,11 @@ printing no result, without either. Phases, each fatal on failure:
   (j) the port's bench (video_depth_anything_torch/bench.py) for vits at
       --iters 3 --warmup 1, run last: its record, which may hold no
       section error.
-  (g) one JSON line {"kernels": [...]} (nine kernels, each with its
+  (g) one JSON line {"kernels": [...]} (ten kernels, each with its
       launches summed over (r)'s tools, its launches per train step, on (p)'s mesh calls and per call of (q)'s
       artifacts, K1 / K2 / K3 with
-      their local shapes' times; K2 with its backward's ms and error), then the card's name and power
+      their local shapes' times; the K2 backward per vits train step, with
+      each shape's times and errors), then the card's name and power
       limit, then the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -250,6 +257,7 @@ SASS_REQUIRED = {"fused_rcu": ("HGMMA", "UTMALDG"),
                  "attention_switches": ("HGMMA", "UTMALDG"),
                  "spatial_attention_qk8": ("IGMMA", "UTMALDG"),
                  "temporal_attention": ("HMMA",),
+                 "temporal_attention_backward": ("HMMA",),
                  "phase_probes": ("HGMMA", "UTMALDG"),
                  "attention_variants": ("HGMMA", "UTMALDG"),
                  "qk_probes": ("HGMMA", "UTMALDG")}
@@ -269,6 +277,9 @@ SASS_ABSENT = {"attention_variants": ("HMMA",), "qk_probes": ("HMMA",)}
 TOL = {"spatial_attention": {"bfloat16": 4e-3, "float32": 1e-4},
        "spatial_attention_qk8": {"bfloat16": 4e-3, "float32": 1e-4},
        "temporal_attention": {"bfloat16": 2e-2, "float32": 1e-4},
+       # dq, dk, dv against the plain version's autograd and the closed form,
+       # relative to each gradient's max |g|: K2's tolerance.
+       "temporal_attention_backward": {"bfloat16": "2e-2 max|g|", "float32": "1e-4 max|g|"},
        "attention_head_major": {"bfloat16": 4e-3, "float32": 1e-4},
        "spatial_attention_qkv_fused": {"bfloat16": 4e-3, "float32": 1e-4},
        "fused_rcu": {"bfloat16": "2^-7 max|y|", "float32": 1e-4},
@@ -1558,13 +1569,19 @@ SHIFT_FREE = "scratch.output_conv2.2.bias"
 # another function could not hide behind the replay.
 GRAD_TOL = 1e-3
 KINK_X = 1e-4
+# A vits train step's launches: the frozen encoder's 12 K1, and each of the
+# four motion modules' two attention blocks' K2 forward and backward.
+TRAIN_STEP_LAUNCHES = {"spatial_attention": 12, "temporal_attention": 8,
+                       "temporal_attention_backward": 8}
 
 
 def k2_closed_form_grads(q, k, v, do, num_heads, scale):
-    """dq, dk, dv of K2's function in closed form, fp32, apart from
+    """dq, dk, dv of K2's function in closed form, float64, apart from
     autograd: P = softmax(qs k^T) with qs = q * scale_in(q's dtype, scale);
     dv = P^T do; ds = P o (do v^T - rowsum(do o o)); dq = ds k * scale;
-    dk = ds^T qs."""
+    dk = ds^T qs. In float64 its own rounding stays out of the fp32
+    comparison: in fp32 it reads about 4e-7 of max |g| where the exact
+    dq and dk are 0 (T = 1)."""
     import torch
     from video_depth_anything_torch.ops.attention import scale_in
 
@@ -1572,7 +1589,7 @@ def k2_closed_form_grads(q, k, v, do, num_heads, scale):
     sc = scale_in(q.dtype, scale)
 
     def heads(x):
-        return x.float().reshape(p, t, num_heads, c // num_heads).transpose(1, 2)
+        return x.double().reshape(p, t, num_heads, c // num_heads).transpose(1, 2)
 
     qh, kh, vh, doh = map(heads, (q, k, v, do))
     prob = torch.softmax((qh * sc) @ kh.transpose(-1, -2), -1)
@@ -1581,13 +1598,14 @@ def k2_closed_form_grads(q, k, v, do, num_heads, scale):
     return [g.transpose(1, 2).reshape(p, t, c) for g in grads]
 
 
-def training_path(cardname):
-    """(n): the training path. K2 under a gradient against its plain
-    version and the forward-only kernels refusing one; one fp32 train step
+def training_path(cardname, record):
+    """(n): the training path. K2 under a gradient (its forward and its
+    backward kernel) against its plain version and the closed form, and the
+    forward-only kernels refusing one; one fp32 train step
     on the card against the CPU plain path (vits, 20 frames at 112^2);
     the full-size bf16 step timed (tools/bench_train_step.py); a
     checkpoint's continuation bit for bit. Returns (the full-size step's
-    record, K2's backward entry)."""
+    record, the backward kernel's entry)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1607,61 +1625,92 @@ def training_path(cardname):
 
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(11)
-    # 1. K2 under a gradient, vits's motion modules at T = 20: the
-    # Function's output against the plain version at K2's tolerance; its
-    # dq / dk / dv equal to the plain version's under autograd bit for bit
-    # (the backward is that recomputation: this checks the plumbing), and
-    # held to the closed-form gradient at K2's tolerance relative to each
-    # gradient's max |g|.
-    grad_err, bwd_ms, bwd_bound, bwd_lib = {}, {}, {}, {}
+    # 1. K2 under a gradient: the Function's output against the plain
+    # version at K2's tolerance; its dq / dk / dv, from the backward kernel
+    # (one launch per backward), held to the plain version's autograd and
+    # to the closed-form gradient at K2's tolerance relative to each
+    # gradient's max |g| (floored at 1e-3 of the largest of the three: at
+    # T = 1 the softmax is constant and dq, dk are 0). vits's four motion
+    # modules at the train step's T = 20, vitl's dh 128 and dh 32 at T = 32,
+    # and T = 1. bf16 timed: the kernel per call (a CUDA graph's replay),
+    # the plain version's recomputation, the Function's backward called
+    # back to back, SDPA's forward and backward on the split heads.
+    shapes = [("vits module 0", 37 * 37, 20, 192), ("vits module 1", 19 * 19, 20, 384),
+              ("vits module 2", 37 * 37, 20, 64), ("vits module 3", 74 * 74, 20, 64),
+              ("vitl module 0", 37 * 37, 32, 1024), ("vitl module 2", 37 * 37, 32, 256),
+              ("vits module 0, T 1", 37 * 37, 1, 192)]
+    grad_err, per_shape, step_keys = {}, {}, []   # step_keys: the train step's four modules
+
+    def rel_errs(got, ref):
+        floor = 1e-3 * max(r.double().abs().max().item() for r in ref)
+        return [(g.double() - r.double()).abs().max().item()
+                / max(r.double().abs().max().item(), floor) for g, r in zip(got, ref)]
+
     for dt in (torch.bfloat16, torch.float32):
         name = str(dt).split(".")[1]
-        for mod, (p, c) in enumerate([(37 * 37, 192), (19 * 19, 384), (37 * 37, 64), (74 * 74, 64)]):
+        for label, p, t, c in shapes:
             dh = c // 8
-            x = [torch.randn(p, 20, c, device="cuda", generator=gen).to(dt) for _ in range(4)]
-            a = [t.clone().requires_grad_() for t in x[:3]]
-            b = [t.clone().requires_grad_() for t in x[:3]]
+            x = [torch.randn(p, t, c, device="cuda", generator=gen).to(dt) for _ in range(4)]
+            a = [u.clone().requires_grad_() for u in x[:3]]
+            b = [u.clone().requires_grad_() for u in x[:3]]
             o = k2.temporal_attention(*a, num_heads=8, scale=dh ** -0.5)
             ref = k2.temporal_attention_plain(*b, num_heads=8, scale=dh ** -0.5)
             if o.grad_fn is None or "TemporalAttentionFunction" not in o.grad_fn.name():
                 raise AssertionError(f"K2 under grad: output has grad_fn {o.grad_fn}")
+            kernels.reset_launch_counts()
             o.backward(x[3], retain_graph=True)
+            torch.cuda.synchronize()
+            launched = {n: k for n, k in kernels.launch_counts().items() if k}
             ref.backward(x[3])
             err, ok, said = held("temporal_attention", name, o.detach(), ref.detach())
             tol = tolerance("temporal_attention", name, ref)
-            plumbed = all(torch.equal(u.grad, w.grad) for u, w in zip(a, b))
-            exact = k2_closed_form_grads(*x[:3], x[3], 8, dh ** -0.5)
-            rel = [((u.grad.float() - g).abs().max() / g.abs().max()).item()
-                   for u, g in zip(a, exact)]
-            ok = ok and plumbed and max(rel) <= tol and all(bool(torch.isfinite(u.grad).all())
-                                                            for u in a)
-            grad_err[name] = max(grad_err.get(name, 0.0), max(rel))
-            key = f"module {mod} [{p},20,{c}]"
+            got = [u.grad for u in a]
+            vs_plain = rel_errs(got, [w.grad for w in b])
+            vs_exact = rel_errs(got, k2_closed_form_grads(*x[:3], x[3], 8, dh ** -0.5))
+            abs_err = max((u.grad.float() - w.grad.float()).abs().max().item()
+                          for u, w in zip(a, b))
+            ok = (ok and launched == {"temporal_attention_backward": 1}
+                  and max(vs_plain) <= tol and max(vs_exact) <= tol
+                  and all(bool(torch.isfinite(g).all()) for g in got))
+            grad_err[name] = max(grad_err.get(name, 0.0), *vs_plain, *vs_exact)
+            record("temporal_attention_backward", name, abs_err)
+            key = f"{label} [{p},{t},{c}] dh {dh}"
+            line = (f"K2 under grad {name:8s} {key}: o {said}; backward kernel launches "
+                    f"{launched}; dq/dk/dv against the plain autograd, max err / max |g| "
+                    f"{', '.join(f'{r:.2e}' for r in vs_plain)} (max abs {abs_err:.3e}); against "
+                    f"the closed form {', '.join(f'{r:.2e}' for r in vs_exact)} (tol {tol:.3g})")
             if name == "bfloat16":
-                bwd_ms[key] = time_ms(
-                    lambda: torch.autograd.grad(o, a, x[3], retain_graph=True), 5, 1)
+                q, k, v, do = (u.detach() for u in (*a, x[3]))
+                e = {"ms": graph_ms(lambda: k2.temporal_attention_backward(
+                         q, k, v, do, num_heads=8, scale=dh ** -0.5), 20),
+                     "plain_ms": time_ms(lambda: k2.temporal_attention_backward_plain(
+                         q, k, v, do, num_heads=8, scale=dh ** -0.5), 5, 1),
+                     "function_ms": time_ms(
+                         lambda: torch.autograd.grad(o, a, x[3], retain_graph=True), 5, 1)}
                 # The least the backward can take: q, k, v, do read once and
-                # dq, dk, dv written once; five [20 x 20 x dh] products per
+                # dq, dk, dv written once; five [T x T x dh] products per
                 # (pixel, head): QK^T again, dV = P^T dO, dP = dO V^T,
                 # dQ = dS K, dK = dS^T Q. The library: SDPA's forward and
-                # backward on the same [P, H, 20, dh] inputs.
-                bwd_bound[key] = bound_ms(10 * p * 20 * 20 * c, 7 * p * 20 * c * 2)
-                heads = [t.detach().unflatten(-1, (8, dh)).transpose(1, 2).requires_grad_()
-                         for t in x[:3]]
-                do_h = x[3].unflatten(-1, (8, dh)).transpose(1, 2)
-                bwd_lib[key] = time_ms(lambda: torch.autograd.grad(
+                # backward on the same [P, H, T, dh] inputs.
+                e["bound_ms"], e["bound_by"] = bound_ms(10 * p * t * t * c, 7 * p * t * c * 2)
+                heads = [u.unflatten(-1, (8, dh)).transpose(1, 2).requires_grad_()
+                         for u in (q, k, v)]
+                do_h = do.unflatten(-1, (8, dh)).transpose(1, 2)
+                e["library_ms"] = time_ms(lambda: torch.autograd.grad(
                     F.scaled_dot_product_attention(*heads, scale=dh ** -0.5), heads, do_h), 5, 1)
+                per_shape[key] = e
+                if t == 20:
+                    step_keys.append(key)
                 del heads, do_h
-            print(f"K2 under grad {name:8s} module {mod} [{p},20,{c}]: o {said}; dq/dk/dv equal "
-                  f"the plain autograd's: {plumbed}; against the closed form, max err / max |g| "
-                  f"{', '.join(f'{r:.2e}' for r in rel)} (tol {tol:.3g})"
-                  + (f"; backward {bwd_ms[key]:.4f} ms (bound {bwd_bound[key][0]:.4f} ms, "
-                     f"{bwd_bound[key][1]}; SDPA forward and backward {bwd_lib[key]:.4f} ms)"
-                     if name == "bfloat16" else ""), flush=True)
+                line += (f"; kernel {e['ms']:.4f} ms (bound {e['bound_ms']:.4f} ms, "
+                         f"{e['bound_by']}), plain {e['plain_ms']:.4f} ms, the Function's "
+                         f"backward {e['function_ms']:.4f} ms, SDPA forward and backward "
+                         f"{e['library_ms']:.4f} ms")
+            print(line, flush=True)
             if not ok:
-                raise AssertionError(f"K2 under grad {name} module {mod}: {said}, plain autograd "
-                                     f"equal {plumbed}, grads {rel}")
-            del x, a, b, o, ref, exact
+                raise AssertionError(f"K2 under grad {name} {key}: {said}, launches {launched}, "
+                                     f"against plain {vs_plain}, closed form {vs_exact}")
+            del x, a, b, o, ref, got
     # The forward-only kernels refuse a gradient, launching nothing.
     dt = torch.bfloat16
     qkv = torch.randn(2, 77, 3 * 384, device="cuda", generator=gen).to(dt).requires_grad_()
@@ -1763,7 +1812,7 @@ def training_path(cardname):
                              f"sides moved at |x| {moved_x}, "
                              f"zero gradients {dead}, encoder same {enc_same}, losses {losses}, "
                              f"output gradients {out_grad}")
-    if fp32_launches != {"spatial_attention": 12, "temporal_attention": 8}:
+    if fp32_launches != TRAIN_STEP_LAUNCHES:
         raise AssertionError(f"fp32 train step launches {fp32_launches}")
     del cpu, gpu, gbatch
 
@@ -1775,13 +1824,14 @@ def training_path(cardname):
           f"(encoder {rec['split_ms']['encoder']:.2f}, head forward and loss "
           f"{rec['split_ms']['head']:.2f}, backward {rec['split_ms']['backward']:.2f}, optimizer "
           f"{rec['split_ms']['optimizer']:.2f} ms); K2 backward {rec['k2_backward_ms']:.3f} ms "
-          f"per step ({100 * rec['k2_backward_share']:.1f} % of the step); peak "
+          f"per step ({100 * rec['k2_backward_share']:.1f} % of the step; its kernel alone "
+          f"{2 * sum(per_shape[key]['ms'] for key in step_keys):.4f} ms); peak "
           f"{rec['peak_gib']:.2f} GiB; launches per step {rec['launches_per_step']}; losses "
           f"{', '.join(f'{x:.5f}' for x in rec['losses'])}; the last conv's largest weight "
           f"gradient {', '.join(f'{x:.2e}' for x in rec['output_grad_max'])}", flush=True)
     if not (rec["finite"] and len(set(rec["losses"])) == len(rec["losses"])
             and min(rec["output_grad_max"]) > 0
-            and rec["launches_per_step"] == {"spatial_attention": 12, "temporal_attention": 8}):
+            and rec["launches_per_step"] == TRAIN_STEP_LAUNCHES):
         raise AssertionError(f"full-size train step: {rec}")
 
     # 4. A checkpoint on the card: the state saved and loaded into another;
@@ -1816,18 +1866,28 @@ def training_path(cardname):
                              f"{out_grad}, loss {float(m1['loss'])} after {rec['losses']}")
     del state, other
     torch.cuda.empty_cache()
-    # Per step: each of the four modules runs its two attention blocks.
-    backward = {"ms": rec["k2_backward_ms"], "share_of_step": rec["k2_backward_share"],
-                "bound_ms": 2 * sum(b for b, _ in bwd_bound.values()),
-                "bound_by": sorted({by for _, by in bwd_bound.values()}),
-                "library_ms": 2 * sum(bwd_lib.values()),
-                "library": "F.scaled_dot_product_attention forward and backward, [P, 8, 20, dh]",
-                "per_module_bound_ms": {k: b for k, (b, _) in bwd_bound.items()},
-                "per_module_library_ms": bwd_lib,
-                "max_rel_err": max(grad_err.values()), "max_rel_err_bf16": grad_err["bfloat16"],
-                "max_rel_err_fp32": grad_err["float32"],
-                "reference": "closed-form dq, dk, dv in fp32 (k2_closed_form_grads)",
-                "per_module_bf16_ms": bwd_ms, "route": "plain PyTorch (recomputed under autograd)"}
+    # Per step: each of vits's four modules runs its two attention blocks.
+    step = [per_shape[key] for key in step_keys]
+    backward = {key: 2 * sum(e[key] for e in step)
+                for key in ("ms", "plain_ms", "function_ms", "bound_ms", "library_ms")}
+    backward.update(
+        bound_by=sorted({e["bound_by"] for e in step})[0],
+        shape=[[37 * 37, 20, 192], [19 * 19, 20, 384], [37 * 37, 20, 64], [74 * 74, 20, 64]],
+        heads=8, dtype="bfloat16",
+        library="F.scaled_dot_product_attention forward and backward, [P, 8, T, dh]",
+        detail=dict(
+            per_step="the four vits modules at T = 20, two calls each; ms: the kernel replayed "
+                     "from a CUDA graph; function_ms: the Function's backward called back to "
+                     "back (its host dispatch shows there); ms_in_step: events around it in "
+                     "the step, where queued work hides that dispatch",
+            function_ms=backward["function_ms"], ms_in_step=rec["k2_backward_ms"],
+            share_of_step=rec["k2_backward_share"], per_shape=per_shape,
+            max_rel_err=max(grad_err.values()), max_rel_err_bf16=grad_err["bfloat16"],
+            max_rel_err_fp32=grad_err["float32"],
+            reference="the plain version's autograd and the closed form in float64 "
+                      "(k2_closed_form_grads), relative to each gradient's max |g|",
+            replaces="no TPU kernel: K2's pallas_call has no VJP; JAX's training takes XLA's "
+                     "gradient of temporal_flat_attention"))
     return rec, backward
 
 
@@ -1988,8 +2048,7 @@ def distributed_path(cardname):
               f"launches per step {rec['train']['launches_per_step']}; phase (o) "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         if not (all(equal) and len(set(losses)) == len(losses)
-                and rec["train"]["launches_per_step"] == {"spatial_attention": 12,
-                                                          "temporal_attention": 8}):
+                and rec["train"]["launches_per_step"] == TRAIN_STEP_LAUNCHES):
             raise AssertionError(f"distributed train step: {rec['train']}")
         del alone, dp, model, state
     finally:
@@ -2443,7 +2502,7 @@ def model_axis_path(cardname, gen, record):
                          "temporal_attention": 8 * n_chunks},
                 "int8": {**zeros, "spatial_attention": 24, "spatial_attention_qk8": 24 * n_chunks,
                          "temporal_attention": 8 * (n_chunks + 1)},
-                "train_step": {**zeros, "spatial_attention": 12, "temporal_attention": 8}}
+                "train_step": {**zeros, **TRAIN_STEP_LAUNCHES}}
         rec = {"mesh": [1, 2], "backend": "gloo, CUDA tensors, two processes on cuda:0",
                "gloo": recs[0]["gloo"],
                "local_heads": {"encoder": recs[0]["local_heads"],
@@ -2903,7 +2962,7 @@ def main() -> int:
     launches_vitg, launches_vitg_int8, launches_vitg_cascade = vitg_path(cardname)
     variants_path(cardname)
     launches_metric = metric_path(cardname)
-    train_rec, k2_backward = training_path(cardname)
+    train_rec, k2_backward = training_path(cardname, record)
     mesh_rec, launches_mesh = distributed_path(cardname)
     tp_rec, launches_tp, tp_local = model_axis_path(cardname, gen, record)
     serving_rec, launches_artifact = serving_artifact_path(cardname)
@@ -2917,7 +2976,7 @@ def main() -> int:
     # Each kernel's launches are counted on its own path: K1 and K2 on the
     # bf16 main path, K3 on the first int8 call, K4 on the head-dim-32
     # pipeline, K5 on its entry's own run, K6 on the vitl RefineNet cascade,
-    # T1-T3 on the bench tools' run. T1-T3 are bf16 only (no fp32 error).
+    # the K2 backward on the vits train step, T1-T3 on the bench tools' run. T1-T3 are bf16 only (no fp32 error).
     bf16_only = ("phase_probes", "attention_variants", "qk_probes")
     meta = {
         "spatial_attention": dict(
@@ -2940,6 +2999,10 @@ def main() -> int:
             source="video_depth_anything_torch/csrc/spatial_attention.cu",
             replaces="video_depth_anything_tpu/ops/pallas_attention.py:145", main=k5,
             path=launches_k5),
+        "temporal_attention_backward": dict(
+            source="video_depth_anything_torch/csrc/temporal_attention_backward.cu",
+            replaces="video_depth_anything_tpu/ops/attention.py:56", main=k2_backward,
+            path=train_rec["launches_per_step"]),
         "fused_rcu": dict(
             source="video_depth_anything_torch/csrc/fused_rcu.cu",
             replaces="video_depth_anything_tpu/ops/pallas_conv.py:125", main=k6,
@@ -2993,7 +3056,7 @@ def main() -> int:
             **{key: e[key] for key in ("library", "probes", "schedules", "derived", "ratio",
                                        "k1_ms", "k1_mxu_denom_ms", "switches_ms", "vitg")
                if key in e},
-            **({"backward": k2_backward} if name == "temporal_attention" else {}),
+            **({"detail": e["detail"]} if "detail" in e else {}),
             **({"options_source": "video_depth_anything_torch/csrc/attention_switches.cu"}
                if name in ("spatial_attention", "attention_head_major",
                            "spatial_attention_qkv_fused") else {}),

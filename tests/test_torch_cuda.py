@@ -672,8 +672,8 @@ def test_vitg_window_peak_memory(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 def test_k2_under_grad_matches_plain_autograd(card, dt, tol):
-    """The autograd Function: K2 forward (one launch), the plain version's
-    gradient backward; dq / dk / dv within ``tol`` of each gradient's max."""
+    """The autograd Function: K2 forward (one launch), the backward kernel
+    (one launch); dq / dk / dv within ``tol`` of each gradient's max."""
     x = [torch.randn(300, 20, 64, device="cuda", generator=card).to(dt) for _ in range(4)]
     a = [t.clone().requires_grad_() for t in x[:3]]
     b = [t.clone().requires_grad_() for t in x[:3]]
@@ -687,7 +687,55 @@ def test_k2_under_grad_matches_plain_autograd(card, dt, tol):
     for u, w in zip(a, b):
         err = (u.grad.float() - w.grad.float()).abs().max().item()
         assert err <= tol * w.grad.float().abs().max().item()
-    assert kernels.launch_counts() == counts(temporal_attention=1)   # the backward launches none
+    assert kernels.launch_counts() == counts(temporal_attention=1, temporal_attention_backward=1)
+
+
+# (P, T, C, heads): vits' four motion modules at the train step's T = 20,
+# vitl's dh 128 and dh 32 at T = 32, T = 1 and 7, 4 local heads of a (1, 2)
+# mesh, and a head dim the bf16 wrapper pads (12 -> 16).
+K2_BACKWARD_SHAPES = [(37 * 37, 20, 192, 8), (19 * 19, 20, 384, 8), (37 * 37, 20, 64, 8),
+                      (74 * 74, 20, 64, 8), (37 * 37, 32, 1024, 8), (37 * 37, 32, 256, 8),
+                      (300, 1, 192, 8), (300, 7, 384, 8), (37 * 37, 20, 96, 4),
+                      (300, 20, 96, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K2_BACKWARD_SHAPES)
+@pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_k2_backward_kernel_matches_plain_version(card, shape, dt, tol):
+    """The backward kernel's dq / dk / dv against the plain version's
+    (the plain forward's gradient under autograd), within ``tol`` of each
+    gradient's max |g|; one launch per call."""
+    p, t, c, h = shape
+    q, k, v, do = (torch.randn(p, t, c, device="cuda", generator=card).to(dt) for _ in range(4))
+    scale = (c // h) ** -0.5
+    kernels.reset_launch_counts()
+    got = k2.temporal_attention_backward(q, k, v, do, num_heads=h, scale=scale)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == counts(temporal_attention_backward=1)
+    ref = k2.temporal_attention_backward_plain(q, k, v, do, num_heads=h, scale=scale)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.dtype == r.dtype and bool(torch.isfinite(g).all())
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= tol * r.float().abs().max().item(), (shape, err)
+
+
+@pytest.mark.cuda
+def test_k2_backward_has_no_hidden_plain_path(card, monkeypatch):
+    """With the plain version made to raise, a backward on CUDA tensors
+    still runs: it launches the kernels and nothing else."""
+    x = [torch.randn(300, 20, 192, device="cuda", generator=card).bfloat16() for _ in range(4)]
+    a = [t.clone().requires_grad_() for t in x[:3]]
+
+    def refuse(*args, **kw):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.setattr(k2, "temporal_attention_plain", refuse)
+    kernels.reset_launch_counts()
+    k2.temporal_attention(*a, num_heads=8, scale=24 ** -0.5).backward(x[3])
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(u.grad).all()) for u in a)
+    assert kernels.launch_counts() == counts(temporal_attention=1, temporal_attention_backward=1)
 
 
 @pytest.mark.cuda
@@ -745,7 +793,8 @@ def test_fp32_train_step_card_vs_cpu(card):
         sides, flips = [], []
         with kinks.record(sides):
             gpu, gm = ts.train_step(gpu, {k: v.cuda() for k, v in batch.items()}, cfg, tc)
-        assert kernels.launch_counts() == counts(spatial_attention=12, temporal_attention=8)
+        assert kernels.launch_counts() == counts(spatial_attention=12, temporal_attention=8,
+                                                 temporal_attention_backward=8)
         with kinks.replay(sides, flips):
             cpu, cm = ts.train_step(cpu, batch, cfg, tc)
     finally:

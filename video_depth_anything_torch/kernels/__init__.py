@@ -4,8 +4,9 @@ Every kernel the model calls is a ``torch.library`` custom op in the
 ``vda`` namespace, registered when this package is imported:
 ``vda::spatial_attention`` (K1, with its route to K4 for dh != 64),
 ``vda::spatial_attention_qk8`` (K3, with its fallback),
-``vda::temporal_attention`` (K2), ``vda::spatial_attention_qkv_fused``
-(K5), ``vda::attention_head_major`` (K4, the functional form) and
+``vda::temporal_attention`` (K2) and ``vda::temporal_attention_backward``
+(its gradient), ``vda::spatial_attention_qkv_fused`` (K5),
+``vda::attention_head_major`` (K4, the functional form) and
 ``vda::fused_rcu`` (K6). Each op's CPU implementation is the kernel's plain
 version, its CUDA implementation the kernel through its ctypes binding (a
 failed build or launch raises), and its fake implementation gives the
@@ -13,7 +14,9 @@ output's shape, dtype and strides without reading the inputs, so
 ``torch.export`` records the op whatever device it traces on
 (``utils/serving_export.py``) and a shapes-only run on the ``meta`` device
 goes through. The Python wrappers refuse a gradient (``grad.py``) and then
-call the op; K2's autograd Function wraps its op.
+call the op; K2's autograd Function wraps its op, and its backward calls
+the backward op (``temporal_attention_backward``), which runs only under a
+gradient.
 
 Every wrapper counts its kernel launches in a plain integer attribute
 (``wrapper.launches``), incremented inside the op's CUDA implementation
@@ -33,6 +36,7 @@ from . import (attention_head_major, attention_variants, fused_rcu, qk_probes,
 KERNELS = {
     "spatial_attention": spatial_attention.spatial_attention,
     "temporal_attention": temporal_attention.temporal_attention,
+    "temporal_attention_backward": temporal_attention.temporal_attention_backward,
     "spatial_attention_qk8": spatial_attention_qk8.spatial_attention_qk8,
     "attention_head_major": attention_head_major.attention_head_major,
     "spatial_attention_qkv_fused": spatial_attention_qkv.spatial_attention_qkv_fused,

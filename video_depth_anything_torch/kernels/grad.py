@@ -4,7 +4,10 @@ A kernel launched through ctypes writes into a tensor autograd knows
 nothing of: its output has no ``grad_fn``, so a gradient would stop there
 without a word. K1 and K3-K6 have no backward, so their wrappers raise
 instead (as differentiating a ``pallas_call`` without a VJP rule fails in
-the JAX package). Only K2 has one (``temporal_attention.py``). The check
+the JAX package). Only K2 has one (``temporal_attention.py``): an autograd
+Function whose backward is a kernel of its own on the card
+(``csrc/temporal_attention_backward.cu``) and the plain version's
+gradient on the CPU. The check
 holds on the CPU as well, where the plain versions could differentiate,
 so that a CPU run never trains a function the card would not.
 

@@ -17,12 +17,15 @@ dropped).
 
 Under a gradient (grad mode on and an input that requires grad) the
 wrapper goes through ``TemporalAttentionFunction``: the forward is the
-op, K2 on the card (the plain version on the CPU), and the backward is the gradient of
-``temporal_attention_plain`` at the saved q, k, v, recomputed in plain
-PyTorch. The JAX package has no backward kernel to port (no
+op, and the backward is the custom op ``vda::temporal_attention_backward``
+at the saved q, k, v (nothing else is saved). Its CPU implementation is
+the gradient of ``temporal_attention_plain``, recomputed under autograd;
+its CUDA implementation is the backward kernel
+(``csrc/temporal_attention_backward.cu``), which recomputes P from q and k
+and launches or raises. The JAX package has no backward kernel (no
 ``custom_vjp``: XLA differentiates its motion modules through
-``temporal_flat_attention`` / ``temporal_mha``), so this plain backward is
-the port of what JAX does, not a fallback. T <= 32, so the recomputed
+``temporal_flat_attention`` / ``temporal_mha``); the kernel is the
+counterpart of that fused gradient. T <= 32, so the recomputed
 probabilities are at most [P, H, 32, 32].
 """
 from __future__ import annotations
@@ -65,6 +68,14 @@ def _bind():
     return fn
 
 
+def _bind_backward():
+    fn = build.library("temporal_attention_backward").vda_temporal_attention_backward
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
 def _check(q, k, v, num_heads):
     if not (q.shape == k.shape == v.shape) or q.dim() != 3:
         raise ValueError(f"q, k, v must share one [P, T, C] shape: "
@@ -96,7 +107,8 @@ def pad_heads(x: torch.Tensor, num_heads: int, head_dim: int) -> torch.Tensor:
 
 
 class TemporalAttentionFunction(torch.autograd.Function):
-    """K2 forward; backward: the plain version's gradient (module docstring)."""
+    """K2 forward; backward: ``vda::temporal_attention_backward`` (module
+    docstring)."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads: int, scale: float):
@@ -106,14 +118,9 @@ class TemporalAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        saved = ctx.saved_tensors
-        need = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            q, k, v = (x.detach().requires_grad_(n) for x, n in zip(saved, need))
-            o = temporal_attention_plain(q, k, v, num_heads=ctx.num_heads, scale=ctx.scale)
-            wrt = [x for x, n in zip((q, k, v), need) if n]
-            grads = iter(torch.autograd.grad(o, wrt, do))
-        return (*(next(grads) if n else None for n in need), None, None)
+        grads = temporal_attention_backward(*ctx.saved_tensors, do, num_heads=ctx.num_heads,
+                                            scale=ctx.scale)
+        return (*(g if n else None for g, n in zip(grads, ctx.needs_input_grad[:3])), None, None)
 
 
 def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -163,3 +170,75 @@ def _(q, k, v, num_heads, scale):
 
 
 temporal_attention.launches = 0
+
+
+def temporal_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                      do: torch.Tensor, *, num_heads: int,
+                                      scale: float) -> tuple[torch.Tensor, ...]:
+    """dq, dk, dv: the gradient of ``temporal_attention_plain`` at q, k, v
+    against ``do``, recomputed under autograd, each contiguous (as the
+    kernel's). The custom op runs its implementations below autograd's
+    dispatch keys (``torch.library`` excludes them), so this turns them
+    back on for its own graph."""
+    autograd = torch._C._SetExcludeDispatchKeyGuard(torch._C.DispatchKey.AutogradFunctionality,
+                                                    False)
+    with autograd, torch.enable_grad():
+        a = [x.detach().requires_grad_() for x in (q, k, v)]
+        o = temporal_attention_plain(*a, num_heads=num_heads, scale=scale)
+        return tuple(g.contiguous() for g in torch.autograd.grad(o, a, do))
+
+
+def temporal_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                do: torch.Tensor, *, num_heads: int,
+                                scale: float) -> tuple[torch.Tensor, ...]:
+    """The gradient of ``temporal_attention`` at q, k, v against ``do``:
+    (dq, dk, dv), each [P, T, C] in q's dtype."""
+    check_device("temporal_attention_backward", q)
+    return temporal_attention_backward_op(q, k, v, do, num_heads, float(scale))
+
+
+@torch.library.custom_op("vda::temporal_attention_backward", mutates_args=(),
+                         device_types="cpu")
+def temporal_attention_backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   do: torch.Tensor, num_heads: int,
+                                   scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return temporal_attention_backward_plain(q, k, v, do, num_heads=num_heads, scale=scale)
+
+
+@temporal_attention_backward_op.register_kernel("cuda")
+def _launch_backward(q, k, v, do, num_heads, scale):
+    """The backward kernel on CUDA tensors, counted."""
+    _check(q, k, v, num_heads)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"do must match q: {tuple(do.shape)} {do.dtype} {do.device} against "
+                         f"{tuple(q.shape)} {q.dtype} {q.device}")
+    p, t, c = q.shape
+    dh = c // num_heads
+    if p == 0:
+        return tuple(torch.empty_like(q) for _ in range(3))
+    if q.dtype == torch.bfloat16 and dh % 8:
+        dp = -(-dh // 8) * 8
+        grads = _launch_backward(*(pad_heads(x, num_heads, dp) for x in (q, k, v, do)),
+                                 num_heads, scale)
+        return tuple(g.reshape(p, t, num_heads, dp)[..., :dh].reshape(p, t, c) for g in grads)
+    q, k, v, do = (x if x.data_ptr() % _ALIGN == 0 else x.clone()
+                   for x in (q, k, v, do.contiguous()))
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    fn = _bind_backward()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), p, t, num_heads, dh,
+                 scale_in(q.dtype, scale), stream)
+    if err != 0:
+        raise RuntimeError(f"temporal_attention_backward kernel launch failed: cudaError {err}")
+    temporal_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+@temporal_attention_backward_op.register_fake
+def _(q, k, v, do, num_heads, scale):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+temporal_attention_backward.launches = 0

@@ -24,7 +24,7 @@ import sys
 
 LIBS = ("spatial_attention", "attention_head_major", "fused_rcu", "qk_probes",
         "attention_variants", "spatial_attention_qk8", "temporal_attention", "phase_probes",
-        "attention_switches")
+        "attention_switches", "temporal_attention_backward")
 
 
 def kernels_sass(root: str, name: str) -> list[tuple[str, list[str]]]:
