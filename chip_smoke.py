@@ -112,8 +112,11 @@ printing no result, without either. Phases, each fatal on failure:
       version's autograd and of the closed-form gradient, relative to each
       gradient's max |g|; bf16 timed per shape (the kernel from a CUDA
       graph, the plain recomputation, the Function's backward, SDPA's
-      forward and backward, the bound); K1 (and its launch), K3, K4, K5 and K6
-      raise under a gradient and launch nothing; one fp32 train step (vits
+      forward and backward, the bound and the exponentials' own time), a
+      line on the earlier warp-per-item design (not in the build: expected
+      bit for bit, measured by tools/bench_wgmma.py --compare); K1 (and its
+      launch), K3, K4, K5 and K6 raise under a gradient and launch nothing;
+      one fp32 train step (vits
       full width and depth, 20 frames at 112^2, TF32 off; the weights and
       clip of tools/bench_train_step.py) on the card against the CPU plain
       path, which takes the card's side at every ReLU and |.| kink
@@ -1575,6 +1578,15 @@ TRAIN_STEP_LAUNCHES = {"spatial_attention": 12, "temporal_attention": 8,
                        "temporal_attention_backward": 8}
 
 
+# The K2 backward's design before its tiles (a warp per (pixel, head), one
+# item loaded, computed and stored at a time).
+EARLIER_DESIGN = ("not compared here, as this build keeps no copy of it; each item keeps "
+                  "that design's arithmetic (the same products summed in the same order, "
+                  "padded frame columns adding exact zeros), so dq / dk / dv are expected bit "
+                  "for bit; tools/bench_wgmma.py --k2_backward --compare DIR measures the max "
+                  "abs difference between two trees")
+
+
 def k2_closed_form_grads(q, k, v, do, num_heads, scale):
     """dq, dk, dv of K2's function in closed form, float64, apart from
     autograd: P = softmax(qs k^T) with qs = q * scale_in(q's dtype, scale);
@@ -1640,6 +1652,7 @@ def training_path(cardname, record):
               ("vitl module 0", 37 * 37, 32, 1024), ("vitl module 2", 37 * 37, 32, 256),
               ("vits module 0, T 1", 37 * 37, 1, 192)]
     grad_err, per_shape, step_keys = {}, {}, []   # step_keys: the train step's four modules
+    exps = {}   # the exponentials' own ms per shape (P recomputed: P * H * T^2), not measured
 
     def rel_errs(got, ref):
         floor = 1e-3 * max(r.double().abs().max().item() for r in ref)
@@ -1693,6 +1706,7 @@ def training_path(cardname, record):
                 # dQ = dS K, dK = dS^T Q. The library: SDPA's forward and
                 # backward on the same [P, H, T, dh] inputs.
                 e["bound_ms"], e["bound_by"] = bound_ms(10 * p * t * t * c, 7 * p * t * c * 2)
+                exps[key] = exp_ms(p * 8 * t * t)
                 heads = [u.unflatten(-1, (8, dh)).transpose(1, 2).requires_grad_()
                          for u in (q, k, v)]
                 do_h = do.unflatten(-1, (8, dh)).transpose(1, 2)
@@ -1703,7 +1717,8 @@ def training_path(cardname, record):
                     step_keys.append(key)
                 del heads, do_h
                 line += (f"; kernel {e['ms']:.4f} ms (bound {e['bound_ms']:.4f} ms, "
-                         f"{e['bound_by']}), plain {e['plain_ms']:.4f} ms, the Function's "
+                         f"{e['bound_by']}; exponentials alone {exps[key]:.4f} ms), plain "
+                         f"{e['plain_ms']:.4f} ms, the Function's "
                          f"backward {e['function_ms']:.4f} ms, SDPA forward and backward "
                          f"{e['library_ms']:.4f} ms")
             print(line, flush=True)
@@ -1711,6 +1726,7 @@ def training_path(cardname, record):
                 raise AssertionError(f"K2 under grad {name} {key}: {said}, launches {launched}, "
                                      f"against plain {vs_plain}, closed form {vs_exact}")
             del x, a, b, o, ref, got
+    print(f"K2 backward against the earlier warp-per-item design: {EARLIER_DESIGN}", flush=True)
     # The forward-only kernels refuse a gradient, launching nothing.
     dt = torch.bfloat16
     qkv = torch.randn(2, 77, 3 * 384, device="cuda", generator=gen).to(dt).requires_grad_()
@@ -1825,7 +1841,9 @@ def training_path(cardname, record):
           f"{rec['split_ms']['head']:.2f}, backward {rec['split_ms']['backward']:.2f}, optimizer "
           f"{rec['split_ms']['optimizer']:.2f} ms); K2 backward {rec['k2_backward_ms']:.3f} ms "
           f"per step ({100 * rec['k2_backward_share']:.1f} % of the step; its kernel alone "
-          f"{2 * sum(per_shape[key]['ms'] for key in step_keys):.4f} ms); peak "
+          f"{2 * sum(per_shape[key]['ms'] for key in step_keys):.4f} ms, its bound "
+          f"{2 * sum(per_shape[key]['bound_ms'] for key in step_keys):.4f} ms, the "
+          f"exponentials alone {2 * sum(exps[key] for key in step_keys):.4f} ms); peak "
           f"{rec['peak_gib']:.2f} GiB; launches per step {rec['launches_per_step']}; losses "
           f"{', '.join(f'{x:.5f}' for x in rec['losses'])}; the last conv's largest weight "
           f"gradient {', '.join(f'{x:.2e}' for x in rec['output_grad_max'])}", flush=True)
@@ -1886,6 +1904,7 @@ def training_path(cardname, record):
             max_rel_err_fp32=grad_err["float32"],
             reference="the plain version's autograd and the closed form in float64 "
                       "(k2_closed_form_grads), relative to each gradient's max |g|",
+            vs_earlier_design=EARLIER_DESIGN,
             replaces="no TPU kernel: K2's pallas_call has no VJP; JAX's training takes XLA's "
                      "gradient of temporal_flat_attention"))
     return rec, backward

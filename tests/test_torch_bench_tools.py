@@ -36,6 +36,43 @@ def test_bench_wgmma_k2_shapes_are_the_motion_module_shapes():
     assert len({shape[0] for shape in bench_wgmma.K2_SHAPES}) == 12   # labels tell them apart
 
 
+def test_bench_wgmma_k2_backward_shapes_are_the_train_steps_motion_modules():
+    """(P, T, C) of the K2 backward rows: vits's motion modules 0-3 at the
+    train step's T (tools/bench_train_step.py's clip of 20 frames), then
+    vitl's dh 128 and dh 32 modules (0 and 2) at T = 32, 8 heads."""
+    import inspect
+
+    from video_depth_anything_torch.tools import bench_train_step
+
+    t = inspect.signature(bench_train_step.measure).parameters["clip_len"].default
+    assert t == 20 and bench_wgmma.K2_BWD_HEADS == bench_wgmma.K2_HEADS == 8
+    vits = [s[1:] for s in bench_wgmma.K2_SHAPES if s[0].startswith("vits 518^2")]
+    vitl = [s[1:] for s in bench_wgmma.K2_SHAPES if s[0].startswith("vitl 518^2")]
+    assert [s[1:] for s in bench_wgmma.K2_BWD_SHAPES] == (
+        [(p, t, c) for p, c in vits] + [(p, bench_wgmma.K2_FRAMES, c) for p, c in vitl[::2]])
+    assert [s[3] // 8 for s in bench_wgmma.K2_BWD_SHAPES] == [24, 48, 8, 8, 128, 32]
+    assert len({s[0] for s in bench_wgmma.K2_BWD_SHAPES}) == 6
+
+
+@pytest.mark.parametrize("group", ["rcu", "attention", "qk8", "temporal", "temporal_backward",
+                                   "qk"])
+def test_bench_variants_substitutions_are_in_the_sources(group):
+    """Every text substitution of ``tools/bench_variants.py`` finds its
+    text once in its source, and each variant builds a library the tool
+    knows, so a variant is an edit of the shipped kernel and not a build
+    error on the card."""
+    import os
+
+    from video_depth_anything_torch.kernels import build
+    from video_depth_anything_torch.tools import bench_variants
+
+    for name, (libs, subs) in bench_variants.VARIANTS[group].items():
+        assert libs in bench_variants._LIBS, name
+        for fname, old, new in subs:
+            with open(os.path.join(build.CSRC, fname)) as f:
+                assert f.read().count(old) == 1 and old != new, (name, old)
+
+
 def test_bench_wgmma_measurement_rows_are_the_bench_tools_shapes():
     """T1 at the phase bench's 64 steps of 1408 rows x 1408 keys (PV 24
     steps), T3's two probes at the same, T2 at its [32, 1370, 16 x 64]

@@ -692,11 +692,22 @@ def test_k2_under_grad_matches_plain_autograd(card, dt, tol):
 
 # (P, T, C, heads): vits' four motion modules at the train step's T = 20,
 # vitl's dh 128 and dh 32 at T = 32, T = 1 and 7, 4 local heads of a (1, 2)
-# mesh, and a head dim the bf16 wrapper pads (12 -> 16).
+# mesh, and a head dim the bf16 wrapper pads (12 -> 16). Then the bf16
+# kernel's tiling at its edges: P that leaves a partial last tile (3 units
+# of 8 heads a tile at T 7; 2 of 4 at T 20), P = 1; dh 512 (one unit a
+# tile, a ring of one at T 32, of two at T 16); frame columns in 2, 3 and
+# 4 blocks of 8 at T 12, 17, 24 and 25; q, k, v, do as views 2 or 4
+# bytes off 16-byte alignment ("view"), which the wrapper copies; and dh 8
+# and 24 (the instances whose width is a compile-time constant) at 2 and 4
+# frame blocks, T 12 and 32.
 K2_BACKWARD_SHAPES = [(37 * 37, 20, 192, 8), (19 * 19, 20, 384, 8), (37 * 37, 20, 64, 8),
                       (74 * 74, 20, 64, 8), (37 * 37, 32, 1024, 8), (37 * 37, 32, 256, 8),
                       (300, 1, 192, 8), (300, 7, 384, 8), (37 * 37, 20, 96, 4),
-                      (300, 20, 96, 8)]
+                      (300, 20, 96, 8),
+                      (1001, 7, 64, 8), (1001, 20, 32, 4), (1, 20, 192, 8), (40, 32, 4096, 8),
+                      (40, 16, 4096, 8), (500, 12, 128, 8), (300, 17, 192, 8),
+                      (300, 24, 64, 8), (300, 25, 256, 8), (300, 20, 192, 8, "view"),
+                      (300, 12, 64, 8), (300, 32, 64, 8), (300, 12, 192, 8), (300, 32, 192, 8)]
 
 
 @pytest.mark.cuda
@@ -706,8 +717,12 @@ def test_k2_backward_kernel_matches_plain_version(card, shape, dt, tol):
     """The backward kernel's dq / dk / dv against the plain version's
     (the plain forward's gradient under autograd), within ``tol`` of each
     gradient's max |g|; one launch per call."""
-    p, t, c, h = shape
-    q, k, v, do = (torch.randn(p, t, c, device="cuda", generator=card).to(dt) for _ in range(4))
+    p, t, c, h, *view = shape
+    off = 1 if view else 0   # one element past the allocation's 16-byte alignment
+    q, k, v, do = (torch.randn(p * t * c + off, device="cuda", generator=card).to(dt)[off:]
+                   .view(p, t, c) for _ in range(4))
+    if view:
+        assert all(x.data_ptr() % 16 for x in (q, k, v, do))
     scale = (c // h) ** -0.5
     kernels.reset_launch_counts()
     got = k2.temporal_attention_backward(q, k, v, do, num_heads=h, scale=scale)
@@ -718,6 +733,30 @@ def test_k2_backward_kernel_matches_plain_version(card, shape, dt, tol):
         assert g.shape == r.shape and g.dtype == r.dtype and bool(torch.isfinite(g).all())
         err = (g.float() - r.float()).abs().max().item()
         assert err <= tol * r.float().abs().max().item(), (shape, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(74 * 74, 20, 64, 8), (37 * 37, 7, 192, 8)])
+@pytest.mark.parametrize("which", ["q", "k", "v", "do"])
+@pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_k2_backward_kernel_keeps_a_non_finite_pixel_to_itself(card, shape, which, dt, tol):
+    """An Inf in one pixel's q, k, v or do leaves every other pixel's dq /
+    dk / dv finite and equal to the plain version's, within ``tol`` of
+    each gradient's max |g|: the blocks walk many tiles through the same
+    staging slots (P well past the grid), and a pixel's non-finite values
+    must not reach the slots' padded frame rows that later pixels sum
+    over."""
+    p, t, c, h = shape
+    x = [torch.randn(p, t, c, device="cuda", generator=card).to(dt) for _ in range(4)]
+    x["qkvd".index(which[0])][0, t // 2, 5] = float("inf")
+    scale = (c // h) ** -0.5
+    got = k2.temporal_attention_backward(*x, num_heads=h, scale=scale)
+    ref = k2.temporal_attention_backward_plain(*x, num_heads=h, scale=scale)
+    for g, r in zip(got, ref):
+        g, r = g[1:].float(), r[1:].float()
+        assert bool(torch.isfinite(g).all()) and bool(torch.isfinite(r).all())
+        err = (g - r).abs().max().item()
+        assert err <= tol * r.abs().max().item(), (which, err)
 
 
 @pytest.mark.cuda

@@ -1,7 +1,7 @@
 """Card diagnosis of the wgmma kernels: build edited copies of their
 sources and time each beside the shipped one.
 
-    python -m video_depth_anything_torch.tools.bench_variants [rcu|attention|qk8|temporal|qk|all]
+    python -m video_depth_anything_torch.tools.bench_variants [rcu|attention|qk8|temporal|temporal_backward|qk|all]
 
 Each variant is a list of text substitutions into a copy of ``csrc/``
 (under ``_build/variants/``, gitignored), compiled with the build's own
@@ -14,9 +14,10 @@ CUDA events (``tools/timing.py``; K2's replayed from a CUDA graph), bf16, at K6'
 (32, 148, 148, 256), at K4's [32, 16, 1370, 64] and K1's main-path
 [22, 1814, 384], at K3's main-path [22, 1814, 384] and at K2's four
 shapes of the main path, [7252, 32, 64], [1813, 32, 192], [475, 32, 384]
-and [1813, 32, 64], and at T3's 64 steps of 1408 rows x 1408 keys (both
-probes, replayed from a CUDA graph). Needs a CUDA card and exits 2
-without one.
+and [1813, 32, 64], at the K2 backward's six shapes (``bench_wgmma.py``'s
+K2_BWD_SHAPES, replayed from a CUDA graph), and at T3's 64 steps of 1408
+rows x 1408 keys (both probes, replayed from a CUDA graph). Needs a CUDA
+card and exits 2 without one.
 """
 from __future__ import annotations
 
@@ -62,8 +63,9 @@ VARIANTS = {
         "shipped": ("both", []),
         "no ping-pong": ("both", [
             ("attention_flash.cuh", "  if (wg == 1) named_arrive(1, 256);\n", ""),
-            ("attention_flash.cuh", "  named_sync(1 + wg, 256);\n  fence_acc();",
-             "  fence_acc();"),
+            ("attention_flash.cuh",
+             "    named_sync(1 + wg, 256);\n    fence_acc();\n    wgmma_fence();\n    issue_qk(0);",
+             "    fence_acc();\n    wgmma_fence();\n    issue_qk(0);"),
             ("attention_flash.cuh", "  if (wg == 0 || ntiles > 1) named_arrive(2 - wg, 256);\n",
              ""),
             ("attention_flash.cuh", "    named_sync(1 + wg, 256);       // this consumer's turn\n",
@@ -100,6 +102,43 @@ VARIANTS = {
             ("temporal_attention.cu", "STAGE_MAX = 14000;", "STAGE_MAX = 20000;"),
             ("temporal_attention.cu", "BLOCKS = 6;", "BLOCKS = 5;")]),
     },
+    "temporal_backward": {
+        "shipped": ("temporal_attention_backward", []),
+        # Frame columns padded to 2 MT blocks of 8 (32 at T 20), not ceil(T / 8),
+        # each block masked past T.
+        "columns 2 MT": ("temporal_attention_backward", [
+            ("temporal_attention_backward.cu", "const int nb = (T + 7) / 8;",
+             "const int nb = 2 * mt;"),
+            ("temporal_attention_backward.cu", "for (int j = NB - 1; j < NB; ++j)",
+             "for (int j = 0; j < NB; ++j)")]),
+        # Outputs written to the padded rows past T too, as zeros would be
+        # (a fault: one unit's Inf reaches later units of its ring slot).
+        "no row guard": ("temporal_attention_backward", [
+            ("temporal_attention_backward.cu", "if (mb + 1 < MT || row < T)", "if (true)")]),
+        # A ring of one tile: no load in flight while a tile computes.
+        "ring 1": ("temporal_attention_backward", [
+            ("temporal_attention_backward.cu",
+             "g.ring = 2 * g.U * g.unit_bytes <= BLOCK_SMEM ? 2 : 1;", "g.ring = 1;")]),
+        # vits's dh 8 and 24 at a width read at run time, as every other dh.
+        "runtime widths": ("temporal_attention_backward", [
+            ("temporal_attention_backward.cu", "case 8: return launch_nb<1>(",
+             "case 8: return launch_nb<0>("),
+            ("temporal_attention_backward.cu", "case 24: return launch_nb<3>(",
+             "case 24: return launch_nb<0>(")]),
+        "dh 8 at 4 blocks": ("temporal_attention_backward", [
+            ("temporal_attention_backward.cu", "BLOCKS_DH8 = 5;", "BLOCKS_DH8 = 4;")]),
+        "dh 8 at 6 blocks": ("temporal_attention_backward", [
+            ("temporal_attention_backward.cu", "BLOCKS_DH8 = 5;", "BLOCKS_DH8 = 6;")]),
+        # The softmax's exponentials as plain multiplies (a wrong result).
+        "no exponentials": ("temporal_attention_backward", [
+            ("temporal_attention_backward.cu",
+             "s[m][j][e] = fast_exp2(fmaf(s[m][j][e], LOG2E, neg[e >> 1]));",
+             "s[m][j][e] = fmaf(s[m][j][e], LOG2E, neg[e >> 1]);")]),
+        # Loads, stores and barriers as shipped, no item computed (a wrong result).
+        "no compute": ("temporal_attention_backward", [
+            ("temporal_attention_backward.cu",
+             "      item_bf16<MT, NB, NN>(b,", "      if (g.T < 0) item_bf16<MT, NB, NN>(b,")]),
+    },
     "qk": {
         "shipped": ("qk_probes", []),
         # The same kernel with a block per tile: each block walks one tile.
@@ -115,7 +154,8 @@ VARIANTS = {
 }
 _LIBS = {"fused_rcu": ("fused_rcu",), "both": ("attention_head_major", "spatial_attention"),
          "spatial_attention_qk8": ("spatial_attention_qk8",),
-         "temporal_attention": ("temporal_attention",), "qk_probes": ("qk_probes",)}
+         "temporal_attention": ("temporal_attention",), "qk_probes": ("qk_probes",),
+         "temporal_attention_backward": ("temporal_attention_backward",)}
 
 
 def _build_variants(group: str) -> dict[str, dict[str, str]]:
@@ -228,6 +268,33 @@ def _time_temporal(built, gen):
 
 
 @torch.no_grad()
+def _time_temporal_backward(built, gen):
+    from ..kernels import temporal_attention as k2
+    from .bench_wgmma import K2_BWD_HEADS, K2_BWD_SHAPES
+
+    h, cases = K2_BWD_HEADS, []
+    for _, p, t, c in K2_BWD_SHAPES:
+        x = [torch.randn(p, t, c, device="cuda", generator=gen).to(torch.bfloat16)
+             for _ in range(4)]
+        dh = c // h
+        cases.append((x, dh, k2.temporal_attention_backward_plain(*x, num_heads=h,
+                                                                  scale=dh ** -0.5)))
+    for rep in range(2):
+        for name, libs in built.items():
+            build._LIBS["temporal_attention_backward"] = ctypes.CDLL(
+                libs["temporal_attention_backward"])
+            line = []
+            for x, dh, ref in cases:
+                def run():
+                    return k2.temporal_attention_backward(*x, num_heads=h, scale=dh ** -0.5)
+
+                err = max((g.float() - r.float()).abs().max().item()
+                          for g, r in zip(run(), ref))
+                line.append(f"{list(x[0].shape)} {graph_ms(run, 30):.4f} ms (err {err:.1e})")
+            print(f"K2 backward {name:22s} (round {rep + 1}): " + ", ".join(line), flush=True)
+
+
+@torch.no_grad()
 def _time_qk(built, gen):
     from ..kernels import qk_probes as qp
 
@@ -248,7 +315,7 @@ def _time_qk(built, gen):
 
 def main() -> int:
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if which not in ("rcu", "attention", "qk8", "temporal", "qk", "all"):
+    if which not in (*VARIANTS, "all"):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -259,7 +326,8 @@ def main() -> int:
     shipped = dict(build._LIBS)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for group, timer in (("rcu", _time_rcu), ("attention", _time_attention), ("qk8", _time_qk8),
-                         ("temporal", _time_temporal), ("qk", _time_qk)):
+                         ("temporal", _time_temporal),
+                         ("temporal_backward", _time_temporal_backward), ("qk", _time_qk)):
         if which in (group, "all"):
             timer(_build_variants(group), gen)
             build._LIBS.update(shipped)

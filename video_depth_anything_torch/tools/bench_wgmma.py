@@ -1,7 +1,8 @@
 """Card microbench of the redesigned kernels: K1, K3 (bf16 v), K4 and K5
 (the attention body ``csrc/attention_flash.cuh``), K6
-(``csrc/fused_rcu.cu``), K2 (``csrc/temporal_attention.cu``) and the
-measurement kernels T1 (``csrc/phase_probes.cu``), T2
+(``csrc/fused_rcu.cu``), K2 (``csrc/temporal_attention.cu``), the K2
+backward (``csrc/temporal_attention_backward.cu``) and the measurement
+kernels T1 (``csrc/phase_probes.cu``), T2
 (``csrc/attention_variants.cu``) and T3 (``csrc/qk_probes.cu``) at the
 shapes of PERF.md's kernel table,
 each beside one PyTorch call of the same function (where there is one)
@@ -9,6 +10,7 @@ and its bound. K1 is also timed with ``mxu_denom=True`` at the main-path
 and vitl shapes, where the tree's wrapper has the switch.
 
     python -m video_depth_anything_torch.tools.bench_wgmma [--label L] [--json PATH]
+        [--k2_backward] [--compare DIR]
 
 Imports are absolute and touch only the kernels' wrappers and the shared
 timing module, so the same file times an older checkout of the package:
@@ -20,11 +22,17 @@ Per shape it prints (and writes as JSON lines) the kernel's ms (mean of a
 run of launches between CUDA events, warm in L2 as far as the inputs fit
 its 50 MB; K2's launches replayed from a CUDA graph, as they take less
 card time than the host needs to launch them), the library call's ms (SDPA; K3: SDPA on q and k dequantized
-to bf16; K2: SDPA on the split heads; K6: relu, cuDNN conv, relu, cuDNN
-conv, add), the bound (the larger of the operations at their peak, bf16
+to bf16; K2: SDPA on the split heads; the K2 backward: SDPA's forward and
+backward on the split heads; K6: relu, cuDNN conv, relu, cuDNN conv, add),
+the bound (the larger of the operations at their peak, bf16
 989 TFLOP/s and K3's int8 QK at 1979 TOP/s, and the bytes at the HBM
 rate) and the max abs error against the plain version. bf16 throughout.
-Needs a CUDA card and exits 2 without one.
+``--k2_backward`` times the K2 backward's rows alone, each on inputs drawn
+from a seed of its own, so that every tree and run sees the same inputs;
+with ``--compare DIR`` the first run saves its dq / dk / dv in DIR and
+every later run reports its max abs difference from them (old, new, new,
+old: one tree's kernel against another's). Needs a CUDA card and exits 2
+without one.
 """
 from __future__ import annotations
 
@@ -41,7 +49,7 @@ if __package__ in (None, ""):   # run by path: the package of the working direct
     sys.path.insert(0, os.getcwd())
 
 from video_depth_anything_torch.tools.timing import (  # noqa: E402
-    PEAK_OPS, bound_ms, card_line, time_ms)
+    PEAK_OPS, bound_ms, card_line, exp_ms, time_ms)
 
 ITERS = 20
 K1_SHAPES = [("main 518x686 cached", 22, 1814, 6), ("vits 518^2", 32, 1370, 6),
@@ -59,6 +67,13 @@ K2_SHAPES = [(f"{enc} m{i}", p, c) for enc, mods in (
     ("vitl 518^2", [(37 * 37, 1024), (19 * 19, 1024), (37 * 37, 256), (74 * 74, 256)]),
     ("vits 518x686", [(37 * 49, 192), (19 * 25, 384), (37 * 49, 64), (74 * 98, 64)]))
     for i, (p, c) in enumerate(mods)]
+# (label, P, T, C) of the K2 backward, 8 heads: the train step's vits
+# motion modules 0..3 at its clip of 20 frames, vitl's dh 128 and dh 32
+# modules at T = 32.
+K2_BWD_HEADS = 8
+K2_BWD_SHAPES = [("vits m0", 37 * 37, 20, 192), ("vits m1", 19 * 19, 20, 384),
+                 ("vits m2", 37 * 37, 20, 64), ("vits m3", 74 * 74, 20, 64),
+                 ("vitl m0 dh 128", 37 * 37, 32, 1024), ("vitl m2 dh 32", 37 * 37, 32, 256)]
 
 
 # Here and not in tools/timing.py, so that this file times older trees too.
@@ -96,7 +111,7 @@ def _row(kernel, label, shape, ms, lib, ops, nbytes, err):
 
 
 @torch.no_grad()
-def bench(gen: torch.Generator) -> list[dict]:
+def bench(gen: torch.Generator, compare: str | None = None) -> list[dict]:
     from video_depth_anything_torch.kernels import attention_head_major as k4
     from video_depth_anything_torch.kernels import fused_rcu as k6
     from video_depth_anything_torch.kernels import spatial_attention as k1
@@ -189,6 +204,53 @@ def bench(gen: torch.Generator) -> list[dict]:
         rows.append(_row("K2", label, [p, t, c], ms, lib, 4 * p * t * t * c,
                          4 * q.numel() * q.element_size(), err))
         del q, k, v, heads
+    torch.cuda.empty_cache()
+    return rows + bench_k2_backward(compare)
+
+
+@torch.no_grad()
+def bench_k2_backward(compare: str | None = None) -> list[dict]:
+    """The K2 backward at K2_BWD_SHAPES: the kernel replayed from a CUDA
+    graph, SDPA's forward and backward on the split heads, the bound (q,
+    k, v, do read once, dq, dk, dv written once, against five T x T x dh
+    products per (pixel, head)), the exponentials' own time, and the max
+    abs error of dq / dk / dv against the plain version; with ``compare``,
+    the max abs difference from the first run's outputs saved there."""
+    from video_depth_anything_torch.kernels import temporal_attention as k2
+
+    rows = []
+    for i, (label, p, t, c) in enumerate(K2_BWD_SHAPES):
+        h = K2_BWD_HEADS
+        dh = c // h
+        gen = torch.Generator(device="cuda").manual_seed(1000 + i)
+        q, k, v, do = (torch.randn(p, t, c, device="cuda", generator=gen).to(torch.bfloat16)
+                       for _ in range(4))
+
+        def run():
+            return k2.temporal_attention_backward(q, k, v, do, num_heads=h, scale=dh ** -0.5)
+
+        got = run()
+        ref = k2.temporal_attention_backward_plain(q, k, v, do, num_heads=h, scale=dh ** -0.5)
+        err = max(_err(g, r) for g, r in zip(got, ref))
+        ms = graph_ms(run, ITERS)
+        heads = [x.unflatten(-1, (h, dh)).transpose(1, 2).requires_grad_() for x in (q, k, v)]
+        do_h = do.unflatten(-1, (h, dh)).transpose(1, 2)
+        with torch.enable_grad():
+            lib = time_ms(lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(*heads, scale=dh ** -0.5), heads, do_h), ITERS)
+        row = _row("K2 backward", label, [p, t, c], ms, lib, 10 * p * t * t * c,
+                   7 * q.numel() * q.element_size(), err)
+        row["exp_ms"] = exp_ms(p * h * t * t)
+        if compare:
+            path = os.path.join(compare, f"k2_backward_{i}.pt")
+            if os.path.exists(path):
+                first = torch.load(path)
+                row["max_abs_diff_vs_first"] = max(_err(g, f.cuda()) for g, f in zip(got, first))
+            else:
+                os.makedirs(compare, exist_ok=True)
+                torch.save([g.cpu() for g in got], path)
+        rows.append(row)
+        del q, k, v, do, got, ref, heads, do_h
     torch.cuda.empty_cache()
     return rows
 
@@ -292,6 +354,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--label", default="", help="a name for this run in its output")
     parser.add_argument("--json", default=None, help="append the rows as JSON lines here")
+    parser.add_argument("--k2_backward", action="store_true",
+                        help="time only the K2 backward's rows")
+    parser.add_argument("--compare", default=None,
+                        help="save the K2 backward's outputs here, or compare with those saved")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("bench_wgmma: no CUDA device; nothing was run", file=sys.stderr)
@@ -299,13 +365,22 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
-    rows = bench(torch.Generator(device="cuda").manual_seed(0))
+    rows = (bench_k2_backward(args.compare) if args.k2_backward
+            else bench(torch.Generator(device="cuda").manual_seed(0), args.compare))
     for r in rows:
         r.update(run=args.label, card=card)
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        extra = "".join(f", {key} {r[key]:.4g}" for key in ("exp_ms", "max_abs_diff_vs_first")
+                        if key in r)
         print(f"[{args.label}] {r['kernel']} {r['label']:20s} {r['shape']}: kernel "
               f"{r['ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), max abs err {r['max_abs_err']:.3e}", flush=True)
+              f"({r['bound_by']}), max abs err {r['max_abs_err']:.3e}{extra}", flush=True)
+    step = [r for r in rows if r["kernel"] == "K2 backward" and r["label"].startswith("vits")]
+    if step:   # each of the four modules' two attention blocks runs its backward once
+        print(f"[{args.label}] K2 backward per vits train step (8 calls): "
+              f"{2 * sum(r['ms'] for r in step):.4f} ms, bound "
+              f"{2 * sum(r['bound_ms'] for r in step):.4f} ms, exponentials "
+              f"{2 * sum(r['exp_ms'] for r in step):.4f} ms", flush=True)
     if args.json:
         with open(args.json, "a") as f:
             for r in rows:
