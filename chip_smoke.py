@@ -1983,7 +1983,7 @@ def distributed_path(cardname):
               f"{', '.join(f'{x:.3f}' for x in ms['mesh'])}; all_gather {gather['count']} calls, "
               f"{rec['bf16']['all_gather_per_chunk_ms']:.4f} ms per chunk (CUDA events), "
               f"{100 * rec['bf16']['all_gather_share_of_window_forward']:.2f} % of the chunks' "
-              f"window_forward time (synchronised per chunk); launches {launches['bf16']}",
+              f"window_forward time (the chunks' device intervals); launches {launches['bf16']}",
               flush=True)
         want = {name: 0 for name in launches["bf16"]}
         want.update(spatial_attention=cfg.vit.depth * chunks, temporal_attention=8 * chunks)

@@ -932,3 +932,40 @@ def test_bench_memory_accounting(card, fp32):
     assert (rec["weights_plus_frames_bytes"] + rec["output_bytes"] < rec["peak_bytes"]
             <= rec["allocated_peak_bytes"] < rec["card_bytes"])
     assert rec["ref_a100_vram_gb"] is None and rec["metric"] == "vits_hbm_gib_112"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 2])
+def test_collect_timings_reads_device_intervals_without_a_synchronise(card, c, monkeypatch):
+    """collect_timings=True on the card: the same depths and launches as an
+    untimed call, no torch.cuda.synchronize, window_forward one device
+    interval per chunk (CUDA events, resolved once the call returns), and
+    device seconds in the totals of the chunk, encoder and head spans."""
+    from video_depth_anything_torch.utils import profiling
+
+    cfg = get_model_config("vits")
+    pipe = VideoDepthPipeline(cfg, build_model(cfg, seed=0))
+    frames = synthetic_video(n=100, hw=(70, 98))
+    kernels.reset_launch_counts()
+    want, _ = pipe.infer_video_depth(frames, input_size=56, windows_per_batch=c)
+    launched = kernels.launch_counts()
+    synced = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: synced.append(1))
+    profiling.reset()
+    kernels.reset_launch_counts()
+    got, _ = pipe.infer_video_depth(frames, input_size=56, windows_per_batch=c,
+                                     collect_timings=True)
+    assert np.array_equal(got, want) and kernels.launch_counts() == launched
+    assert synced == []
+    chunks = 5 if c == 1 else 3
+    summary = pipe.timer.summary()
+    assert summary["window_forward"]["count"] == summary["gather_upload"]["count"] == chunks
+    t = profiling.totals()
+    assert t["vda.pipeline.chunk"]["count"] == chunks
+    assert summary["window_forward"]["total_ms"] == pytest.approx(
+        1e3 * t["vda.pipeline.chunk"]["device_s"])
+    for name in ("vda.pipeline.chunk", "vda.encoder", "vda.head"):
+        assert t[name]["device_s"] > 0, name
+    clip = t["vda.clip"]["counters"]
+    assert clip["frames"] == 100 and "cuda_mallocs" in clip
+    profiling.reset()

@@ -38,6 +38,7 @@ from ..ops import nn as vnn
 from ..ops import quant
 from ..ops.resize import device_matrix
 from ..parallel.tensor import copy_to_model, max_over_model
+from ..utils import profiling
 
 
 def interpolate_pos_encoding(pos_embed: torch.Tensor, ph: int, pw: int,
@@ -166,15 +167,20 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
         """One block; with ``stats``, the block's activation absmaxes land
-        there under the ``quant.ACT_SITES`` names."""
-        y = vnn.layer_norm(x, self.norm1.weight, self.norm1.bias, 1e-6)
-        if stats is not None:
-            stats["qkv"] = quant.amax(y)
-        x = x + self.ls1.gamma.to(x.dtype) * self.attn(y, stats)
-        y = vnn.layer_norm(x, self.norm2.weight, self.norm2.bias, 1e-6)
-        if stats is not None:   # the FFN's input (fc1, or SwiGLU's w12)
-            stats["fc1"] = quant.amax(y)
-        return x + self.ls2.gamma.to(x.dtype) * self.mlp(y, stats)
+        there under the ``quant.ACT_SITES`` names. Its stages are the spans
+        ``vda.encoder.norm1``, ``.attn``, ``.norm2`` and ``.mlp``."""
+        with profiling.span("vda.encoder.norm1"):
+            y = vnn.layer_norm(x, self.norm1.weight, self.norm1.bias, 1e-6)
+            if stats is not None:
+                stats["qkv"] = quant.amax(y)
+        with profiling.span("vda.encoder.attn"):
+            x = x + self.ls1.gamma.to(x.dtype) * self.attn(y, stats)
+        with profiling.span("vda.encoder.norm2"):
+            y = vnn.layer_norm(x, self.norm2.weight, self.norm2.bias, 1e-6)
+            if stats is not None:   # the FFN's input (fc1, or SwiGLU's w12)
+                stats["fc1"] = quant.amax(y)
+        with profiling.span("vda.encoder.mlp"):
+            return x + self.ls2.gamma.to(x.dtype) * self.mlp(y, stats)
 
 
 class DinoVisionTransformer(nn.Module):
@@ -208,8 +214,11 @@ class DinoVisionTransformer(nn.Module):
                                 ) -> list[tuple[torch.Tensor, torch.Tensor]]:
         """x: [N, H, W, 3] (H, W multiples of the patch) -> per tap
         (patch tokens [N, P, D], cls [N, D]) after the final norm. Blocks
-        after the last tap do not run."""
-        return self._run(x, taps, None)
+        after the last tap do not run. The span ``vda.encoder`` (device
+        time on a card; counter ``frames``)."""
+        with profiling.span("vda.encoder", device=x.is_cuda) as sp:
+            sp.add(frames=x.shape[0])
+            return self._run(x, taps, None)
 
     def calibrate(self, x: torch.Tensor, taps):
         """One calibration forward: (the taps exactly as
@@ -222,7 +231,8 @@ class DinoVisionTransformer(nn.Module):
         return results, stats
 
     def _run(self, x, taps, per_block):
-        tokens = self.embed_tokens(x)
+        with profiling.span("vda.encoder.embed"):
+            tokens = self.embed_tokens(x)
         outs = []
         for i in range(max(taps) + 1):
             st = None if per_block is None else {}
@@ -231,7 +241,8 @@ class DinoVisionTransformer(nn.Module):
                 per_block.append(st)
             outs.extend(tokens for t in taps if t == i)
         results = []
-        for o in outs:
-            o = vnn.layer_norm(o, self.norm.weight, self.norm.bias, 1e-6)
-            results.append((o[:, 1:, :], o[:, 0, :]))
+        with profiling.span("vda.encoder.final_norm"):
+            for o in outs:
+                o = vnn.layer_norm(o, self.norm.weight, self.norm.bias, 1e-6)
+                results.append((o[:, 1:, :], o[:, 0, :]))
         return results

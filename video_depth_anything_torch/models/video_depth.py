@@ -22,9 +22,13 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops import nn as vnn
 from ..ops.resize import resize_bilinear_align_corners
+from ..utils import profiling
 from .dinov2 import DinoVisionTransformer
 from .dpt import Scratch
 from .motion import TemporalModule, sinusoidal_pe
+
+
+_MOTION_SPANS = tuple(f"vda.head.motion{i}" for i in range(4))
 
 
 class DPTHeadTemporal(nn.Module):
@@ -55,10 +59,13 @@ class DPTHeadTemporal(nn.Module):
         """feats: 4 x (patch tokens [B*T, P, D], cls [B*T, D]) ->
         depth [B*T, 14*ph, 14*pw, 1] fp32. With ``stats``, each motion
         module's calibration tree lands there under "0".."3". ``train``:
-        the output head's full fp32 island (``Scratch.output_head``)."""
-        layers = self.refine_inputs(feats, ph, pw, b, t, stats)
-        path_1 = self.cascade(layers, lambda i, path: self.tmod(i, path, b, t, stats))
-        return self.scratch.output_head(path_1, (14 * ph, 14 * pw), train=train)
+        the output head's full fp32 island (``Scratch.output_head``). The
+        span ``vda.head`` (device time on a card), its stages ``vda.head.*``."""
+        with profiling.span("vda.head", device=feats[0][0].is_cuda):
+            layers = self.refine_inputs(feats, ph, pw, b, t, stats)
+            path_1 = self.cascade(layers, lambda i, path: self.tmod(i, path, b, t, stats))
+            with profiling.span("vda.head.output"):
+                return self.scratch.output_head(path_1, (14 * ph, 14 * pw), train=train)
 
     def cascade(self, layers, between) -> torch.Tensor:
         """The RefineNet cascade refinenet4 -> refinenet1 on l1..l4 ->
@@ -66,10 +73,16 @@ class DPTHeadTemporal(nn.Module):
         refinenet3 (i = 3): the forward puts motion modules 2 and 3 there."""
         l1, l2, l3, l4 = layers
         sc = self.scratch
-        path_4 = between(2, sc.refinenet4(l4, size=l3.shape[1:3]))
-        path_3 = between(3, sc.refinenet3(path_4, l3, size=l2.shape[1:3]))
-        path_2 = sc.refinenet2(path_3, l2, size=l1.shape[1:3])
-        return sc.refinenet1(path_2, l1)
+        with profiling.span("vda.head.refinenet4"):
+            path_4 = sc.refinenet4(l4, size=l3.shape[1:3])
+        path_4 = between(2, path_4)
+        with profiling.span("vda.head.refinenet3"):
+            path_3 = sc.refinenet3(path_4, l3, size=l2.shape[1:3])
+        path_3 = between(3, path_3)
+        with profiling.span("vda.head.refinenet2"):
+            path_2 = sc.refinenet2(path_3, l2, size=l1.shape[1:3])
+        with profiling.span("vda.head.refinenet1"):
+            return sc.refinenet1(path_2, l1)
 
     def tmod(self, i: int, feat: torch.Tensor, b: int, t: int,
              stats: dict | None = None) -> torch.Tensor:
@@ -78,17 +91,20 @@ class DPTHeadTemporal(nn.Module):
         st = None
         if stats is not None:
             st = stats[str(i)] = {}
-        return self.motion_modules[i](feat, b, t, st)
+        with profiling.span(_MOTION_SPANS[i]):
+            return self.motion_modules[i](feat, b, t, st)
 
     def refine_inputs(self, feats, ph: int, pw: int, b: int, t: int,
                       stats: dict | None = None):
         """The taps projected, resized, through motion modules 0 and 1 and
         the 3x3 scratch convs: the RefineNet cascade's inputs l1..l4 (NHWC,
         ``features`` channels, 4x, 2x, 1x and 1/2x the patch grid)."""
-        layer_1, layer_2, layer_3, layer_4 = self.project(self.grids(feats, ph, pw))
+        with profiling.span("vda.head.project"):
+            layer_1, layer_2, layer_3, layer_4 = self.project(self.grids(feats, ph, pw))
         layer_3 = self.tmod(0, layer_3, b, t, stats)
         layer_4 = self.tmod(1, layer_4, b, t, stats)
-        return self.scratch.rn([layer_1, layer_2, layer_3, layer_4])
+        with profiling.span("vda.head.rn"):
+            return self.scratch.rn([layer_1, layer_2, layer_3, layer_4])
 
     def grids(self, feats, ph: int, pw: int):
         """The taps as [N, ph, pw, D] grids (after the ``use_clstoken``

@@ -47,10 +47,14 @@ sequential cache resizes, then applies ReLU; the plain and batched modes
 apply ReLU at network resolution, then resize. They differ where the head
 output is negative, and each mode is held to its JAX counterpart.
 
-``collect_timings=True`` times the spans ``window_forward`` (a chunk's
-compute, the card synchronised at its end) and ``gather_upload`` (the next
-chunk's gather and upload inside it) in ``self.timer``
-(``utils/profiling.py::WindowTimer``).
+Every stage opens a span of ``utils/profiling.py`` (``vda.clip``, the
+call's root; ``vda.pipeline.*``), named in a ``torch.profiler`` trace.
+``collect_timings=True`` also adds them to the process's totals and keeps
+``window_forward`` (each chunk's device interval, from CUDA events
+resolved after the call's last fetch; host time on the CPU) and
+``gather_upload`` (the next chunk's gather and upload inside it) in
+``self.timer`` (``WindowTimer``). Nothing synchronises the card for it, so
+a timed call overlaps copies and compute as an untimed one does.
 
 ``quant="int8"`` runs every mode with the int8 model of ``ops/quant.py``,
 calibrated on the first window's frames (streaming buffers that whole
@@ -102,7 +106,7 @@ from ..ops.resize import resize_bilinear_align_corners
 from ..parallel.distributed import process_batch_bounds
 from ..parallel.mesh import (data_size, gather_model, mesh_device, model_axis, shard_params,
                              split_params)
-from ..utils.profiling import WindowTimer
+from ..utils import profiling
 from ..utils.serving_export import WindowProgram
 from ..utils.tree import flatten_tree, unflatten_tree
 from . import preprocess, stitch, windows
@@ -208,19 +212,16 @@ class DataAxis:
     rank's ``t`` on the first axis and drops the rows from ``n`` on (the
     padding), in ``t``'s order of strides: the resize leaves the depths in
     a permuted layout and the stitch sums in the order of the layout, so a
-    mesh of one rank stays bit for bit with no mesh. With ``timer`` set,
-    each all_gather's time lands in its span ``all_gather``: CUDA events
-    around the collective on the card (added at ``flush``, after the call's
-    last synchronisation), the host clock on the CPU. The collectives are
-    synchronous calls, so NCCL's stream is ordered after the kernels that
-    produced ``t`` and before the ops that read the result."""
+    mesh of one rank stays bit for bit with no mesh. Each collective is
+    the span ``vda.pipeline.all_gather`` (device time on a card: the
+    ``WindowTimer``'s ``all_gather``). The collectives are synchronous
+    calls, so NCCL's stream is ordered after the kernels that produced
+    ``t`` and before the ops that read the result."""
 
     def __init__(self, mesh):
         self.mesh = mesh
         self.group = mesh.get_group("data")
         self.size = data_size(mesh)
-        self.timer: WindowTimer | None = None
-        self._events: list = []
 
     def take(self, rows, unit: int = 1):
         groups = len(rows) // unit
@@ -242,25 +243,11 @@ class DataAxis:
         order = sorted(range(t.dim()), key=lambda d: -t.stride(d))
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(self.size)]
-        if self.timer is None:
+        with profiling.span("vda.pipeline.all_gather", device=t.is_cuda):
             dist.all_gather(parts, t, group=self.group)
-        elif t.is_cuda:
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            dist.all_gather(parts, t, group=self.group)
-            end.record()
-            self._events.append((start, end))
-        else:
-            with self.timer.span("all_gather"):
-                dist.all_gather(parts, t, group=self.group)
         whole = torch.cat(parts)[:n]
         out = t.new_empty([whole.shape[d] for d in order])
         return out.permute(*[order.index(d) for d in range(t.dim())]).copy_(whole)
-
-    def flush(self) -> None:
-        for start, end in self._events:
-            self.timer.add("all_gather", start.elapsed_time(end) / 1e3)
-        self._events = []
 
 
 def slot_plan(sel: np.ndarray, res_ids: np.ndarray | None):
@@ -301,8 +288,9 @@ class SequentialKeyframeCache:
                    for (pt, pc), (nt, nc) in zip(self.feats, new)]
         self.feats = new
         depth = self.model.head(new, self.ph, self.pw, 1, INFER_LEN)
-        depth = resize_bilinear_align_corners(depth.float(), self.src_hw)
-        return torch.relu(depth)[..., 0][None]                # [1, 32, H, W]
+        with profiling.span("vda.pipeline.resize"):
+            depth = resize_bilinear_align_corners(depth.float(), self.src_hw)
+            return torch.relu(depth)[..., 0][None]            # [1, 32, H, W]
 
 
 class BatchedKeyframeCache:
@@ -341,8 +329,9 @@ class BatchedKeyframeCache:
         self.resident = [(t.index_select(0, res_rel), c.index_select(0, res_rel))
                          for t, c in table]
         depth = self.model.head(feats, self.ph, self.pw, rows, INFER_LEN)
-        depth = resize_bilinear_align_corners(torch.relu(depth.float()), self.src_hw)
-        depth = depth[..., 0].reshape(rows, INFER_LEN, *self.src_hw)
+        with profiling.span("vda.pipeline.resize"):
+            depth = resize_bilinear_align_corners(torch.relu(depth.float()), self.src_hw)
+            depth = depth[..., 0].reshape(rows, INFER_LEN, *self.src_hw)
         return depth if self.axis is None else self.axis.gather(depth, r)
 
 
@@ -387,6 +376,10 @@ class HostLink:
     def upload(self, rows: Sequence[np.ndarray], kind: str) -> torch.Tensor:
         """``rows`` stacked on a new first axis, on the device; an empty
         sequence gives an empty tensor."""
+        with profiling.span("vda.pipeline.upload", mallocs=True):
+            return self._upload(rows, kind)
+
+    def _upload(self, rows, kind):
         if not len(rows):
             return torch.empty((0,), device=self.device)
         if not self.overlap:
@@ -397,7 +390,8 @@ class HostLink:
         slots.append(slots.pop(0))              # the buffer of two uploads ago
         buf, done = slots[-1]
         if done is not None:
-            done.synchronize()                  # its last copy has left the buffer
+            with profiling.span("vda.pipeline.wait"):
+                done.synchronize()              # its last copy has left the buffer
         nbytes = math.prod(shape) * dtype.itemsize
         if buf is None or buf.numel() < nbytes:
             buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
@@ -414,20 +408,23 @@ class HostLink:
         return dev
 
     def download(self, t: torch.Tensor):
-        if not self.overlap:
-            return t.cpu()
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(self.compute)
-        return host, done
+        with profiling.span("vda.pipeline.download"):
+            if not self.overlap:
+                return t.cpu()
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.compute)
+            return host, done
 
     def fetch(self, pending) -> np.ndarray:
-        if not self.overlap:
-            return pending.numpy()
-        host, done = pending
-        done.synchronize()
-        return host.numpy()
+        with profiling.span("vda.pipeline.fetch"):
+            if not self.overlap:
+                return pending.numpy()
+            host, done = pending
+            with profiling.span("vda.pipeline.wait"):
+                done.synchronize()
+            return host.numpy()
 
 
 @dataclasses.dataclass
@@ -548,7 +545,7 @@ class VideoDepthPipeline:
         self.quant = quant
         self.calib_path = calib_path
         self.transfer_fp16 = transfer_fp16
-        self.timer: WindowTimer | None = None   # set by collect_timings=True
+        self.timer: profiling.WindowTimer | None = None   # set by collect_timings=True
         self._by_dtype = {torch.float32: self.model}
         self._int8: dict = {}
     def model_in(self, dtype: torch.dtype) -> torch.nn.Module:
@@ -604,15 +601,15 @@ class VideoDepthPipeline:
         return net_hw, (net_hw[0] // p, net_hw[1] // p), (torch.float32 if fp32 else torch.bfloat16)
 
     @torch.no_grad()
-    def _run(self, chunks: Iterator[Chunk], forward, timer: WindowTimer | None):
+    def _run(self, chunks: Iterator[Chunk], forward):
         """Runs ``chunks`` through ``forward`` and stitches; yields each
         chunk's finalised frames, then the last window's tail, as host
         arrays (fp16 under transfer_fp16). Chunk i + 1 is gathered and
         uploaded right after chunk i's compute is enqueued; chunk i's frames
-        are read after chunk i + 1's compute is enqueued."""
+        are read after chunk i + 1's compute is enqueued. No span is open
+        across a ``yield``."""
         link = HostLink(self.device)
-        span = timer.span if timer is not None else (lambda _: contextlib.nullcontext())
-        sync = timer is not None and self.device.type == "cuda"
+        cuda = self.device.type == "cuda"
         out_dtype = torch.float16 if self.transfer_fp16 else torch.float32
 
         def upload(chunk):
@@ -625,27 +622,28 @@ class VideoDepthPipeline:
         carry, pending = None, []
         while nxt is not None:
             frames, index, r, n = nxt
-            with span("window_forward"):
+            with profiling.span("vda.pipeline.chunk", device=cuda, mallocs=True):
                 depths = forward(frames, index, r, n)
-                with span("gather_upload"):
+                with profiling.span("vda.pipeline.gather_upload"):
                     nxt = upload(next(chunks, None))
-                if sync:
-                    torch.cuda.synchronize(self.device)
-            emits = []
-            for d in depths:
-                if carry is None:
-                    carry, emit = stitch.stitch_first(d)
-                else:
-                    carry, emit = stitch.stitch_step(carry, d, metric=self.cfg.metric)
-                emits.append(emit)
-            pending.append(link.download(torch.cat(emits).to(out_dtype)))
+            with profiling.span("vda.pipeline.stitch", mallocs=True):
+                emits = []
+                for d in depths:
+                    if carry is None:
+                        carry, emit = stitch.stitch_first(d)
+                    else:
+                        carry, emit = stitch.stitch_step(carry, d, metric=self.cfg.metric)
+                    emits.append(emit)
+                emitted = torch.cat(emits).to(out_dtype)
+            pending.append(link.download(emitted))
+            del emitted     # freed now: the next chunk's compute may reuse its block
             while len(pending) > 1:
                 yield link.fetch(pending.pop(0))
-        pending.append(link.download(carry[2].to(out_dtype)))
+        with profiling.span("vda.pipeline.stitch", mallocs=True):
+            tail = carry[2].to(out_dtype)
+        pending.append(link.download(tail))
         for p in pending:
             yield link.fetch(p)
-        if self.axis is not None and self.axis.timer is not None:
-            self.axis.flush()
 
     @torch.no_grad()
     def infer_video_depth(self, frames, target_fps: float = -1,
@@ -657,37 +655,43 @@ class VideoDepthPipeline:
 
         Returns (depths [N, H, W] float32, target_fps). ``windows_per_batch``
         is capped at the number of windows; with collect_timings=True the
-        spans' statistics land in ``self.timer.summary()``.
+        spans' statistics land in ``self.timer.summary()`` and the spans
+        in ``utils.profiling.totals()``.
         """
-        self.timer = WindowTimer() if collect_timings else None
-        frames = np.asarray(frames)
-        n, src_h, src_w = frames.shape[:3]
-        net_hw, (ph, pw), dtype = self._geometry(src_h, src_w, input_size, fp32)
-        idx = windows.window_indices(n)
-        model = self._model_for(frames[idx[0]], net_hw, dtype)
-        c = max(1, min(windows_per_batch, len(idx)))
-        src_hw = (src_h, src_w)
-        axis = self.axis
-        if axis is not None:    # the chunk tiles the data axis
-            c = -(-c // axis.size) * axis.size
-            axis.timer = self.timer
-        if cache_keyframe_features and c == 1 and axis is None:
-            forward = SequentialKeyframeCache(model, ph, pw, net_hw, src_hw, dtype, self.device)
-            chunks = _sequential_chunks(frames, idx)
-        elif cache_keyframe_features:
-            forward = BatchedKeyframeCache(model, ph, pw, net_hw, src_hw, dtype, axis)
-            chunks = _batched_chunks(frames, idx, c)
-        else:
-            forward = PlainWindows(model, net_hw, src_hw, dtype, axis)
-            chunks = _plain_chunks(frames, idx, c)
-        if axis is not None:
-            chunks = axis.split(chunks, 1 if cache_keyframe_features else INFER_LEN)
-        out = np.empty((FRAME_STEP * len(idx) + OVERLAP, src_h, src_w), np.float32)
-        at = 0
-        for part in self._run(chunks, forward, self.timer):
-            out[at:at + len(part)] = part
-            at += len(part)
-        assert at == len(out), (at, out.shape)
+        self.timer = profiling.WindowTimer() if collect_timings else None
+        sink = profiling.collecting(self.timer) if collect_timings else contextlib.nullcontext()
+        with sink, profiling.span("vda.clip", mallocs=True) as clip:
+            with profiling.span("vda.pipeline.setup"):
+                frames = np.asarray(frames)
+                n, src_h, src_w = frames.shape[:3]
+                net_hw, (ph, pw), dtype = self._geometry(src_h, src_w, input_size, fp32)
+                idx = windows.window_indices(n)
+                model = self._model_for(frames[idx[0]], net_hw, dtype)
+                c = max(1, min(windows_per_batch, len(idx)))
+                src_hw = (src_h, src_w)
+                axis = self.axis
+                if axis is not None:    # the chunk tiles the data axis
+                    c = -(-c // axis.size) * axis.size
+                if cache_keyframe_features and c == 1 and axis is None:
+                    forward = SequentialKeyframeCache(model, ph, pw, net_hw, src_hw, dtype,
+                                                      self.device)
+                    chunks = _sequential_chunks(frames, idx)
+                elif cache_keyframe_features:
+                    forward = BatchedKeyframeCache(model, ph, pw, net_hw, src_hw, dtype, axis)
+                    chunks = _batched_chunks(frames, idx, c)
+                else:
+                    forward = PlainWindows(model, net_hw, src_hw, dtype, axis)
+                    chunks = _plain_chunks(frames, idx, c)
+                if axis is not None:
+                    chunks = axis.split(chunks, 1 if cache_keyframe_features else INFER_LEN)
+                out = np.empty((FRAME_STEP * len(idx) + OVERLAP, src_h, src_w), np.float32)
+            clip.add(frames=n)
+            at = 0
+            for part in self._run(chunks, forward):
+                with profiling.span("vda.pipeline.copy_out"):
+                    out[at:at + len(part)] = part
+                at += len(part)
+            assert at == len(out), (at, out.shape)
         return out[:n], target_fps
 
     @torch.no_grad()
@@ -710,35 +714,41 @@ class VideoDepthPipeline:
                 "an identical frame stream; use infer_video_depth with "
                 "windows_per_batch for multi-host serving")
         c = max(1, windows_per_batch)
-        it = iter(frame_iter)
-        first = []
-        for f in it:
-            first.append(np.asarray(f))
-            if len(first) == INFER_LEN:
-                break
-        if not first:
-            return
-        src_hw = first[0].shape[:2]
-        net_hw, (ph, pw), dtype = self._geometry(*src_hw, input_size, fp32)
-        state = _Stream(n=len(first), ended=len(first) < INFER_LEN)
-        window0 = np.stack(first + [first[-1]] * (INFER_LEN - len(first)))
-        model = self._model_for(window0, net_hw, dtype)
-        del window0
-        if c == 1 and self.axis is None:
-            forward = SequentialKeyframeCache(model, ph, pw, net_hw, src_hw, dtype, self.device)
-            chunks = _stream_sequential(it, first, state)
-        else:
-            forward = BatchedKeyframeCache(model, ph, pw, net_hw, src_hw, dtype, self.axis)
-            chunks = _stream_batched(it, first, c, state)
-            if self.axis is not None:
-                self.axis.timer = None
-                chunks = self.axis.split(chunks, 1)
-        del first
-        emitted = 0
-        for part in self._run(chunks, forward, None):
-            # Until the stream ends nothing emitted lies past it; after, n is final.
-            if state.ended:
-                part = part[: max(0, state.n - emitted)]
-            emitted += len(part)
-            if len(part):
-                yield np.array(part, dtype=np.float32)
+        with profiling.span("vda.clip", mallocs=True) as clip:
+            with profiling.span("vda.pipeline.setup"):
+                it = iter(frame_iter)
+                first = []
+                for f in it:
+                    first.append(np.asarray(f))
+                    if len(first) == INFER_LEN:
+                        break
+                if not first:
+                    return
+                src_hw = first[0].shape[:2]
+                net_hw, (ph, pw), dtype = self._geometry(*src_hw, input_size, fp32)
+                state = _Stream(n=len(first), ended=len(first) < INFER_LEN)
+                window0 = np.stack(first + [first[-1]] * (INFER_LEN - len(first)))
+                model = self._model_for(window0, net_hw, dtype)
+                del window0
+                if c == 1 and self.axis is None:
+                    forward = SequentialKeyframeCache(model, ph, pw, net_hw, src_hw, dtype,
+                                                      self.device)
+                    chunks = _stream_sequential(it, first, state)
+                else:
+                    forward = BatchedKeyframeCache(model, ph, pw, net_hw, src_hw, dtype,
+                                                   self.axis)
+                    chunks = _stream_batched(it, first, c, state)
+                    if self.axis is not None:
+                        chunks = self.axis.split(chunks, 1)
+                del first
+            emitted = 0
+            for part in self._run(chunks, forward):
+                # Until the stream ends nothing emitted lies past it; after, n is final.
+                if state.ended:
+                    part = part[: max(0, state.n - emitted)]
+                emitted += len(part)
+                if len(part):
+                    with profiling.span("vda.pipeline.copy_out"):
+                        part = np.array(part, dtype=np.float32)
+                    yield part      # the root span stays open while the caller holds it
+            clip.add(frames=emitted)

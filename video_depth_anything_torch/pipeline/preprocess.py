@@ -11,6 +11,7 @@ import torch
 
 from ..config import IMAGENET_MEAN, IMAGENET_STD
 from ..ops.resize import apply_separable, device_matrix, resize_bicubic_half_pixel, tracing
+from ..utils import profiling
 
 
 def effective_input_size(frame_h: int, frame_w: int, input_size: int = 518) -> int:
@@ -42,17 +43,19 @@ def preprocess_frames(frames: torch.Tensor, out_hw: tuple[int, int],
     [..., h, w, 3] in ``dtype``; the resize runs in fp32 for cv2 parity.
     ``consts``: ``preprocess_consts``'s tensors for these frames, built
     ahead (``utils/serving_export.py::WindowProgram`` keeps them as
-    buffers); without them they come from the per-device caches."""
-    x = frames.float()
-    if frames.dtype == torch.uint8:
-        x = x / 255.0
-    if consts is None:
-        x = resize_bicubic_half_pixel(x, out_hw)
-        mean, std = _imagenet(x.device)
-    else:
-        mh, mw, mean, std = consts
-        x = apply_separable(x, mh, mw)
-    return ((x - mean) / std).to(dtype)
+    buffers); without them they come from the per-device caches. The span
+    ``vda.pipeline.preprocess``."""
+    with profiling.span("vda.pipeline.preprocess"):
+        x = frames.float()
+        if frames.dtype == torch.uint8:
+            x = x / 255.0
+        if consts is None:
+            x = resize_bicubic_half_pixel(x, out_hw)
+            mean, std = _imagenet(x.device)
+        else:
+            mh, mw, mean, std = consts
+            x = apply_separable(x, mh, mw)
+        return ((x - mean) / std).to(dtype)
 
 
 def preprocess_consts(src_hw: tuple[int, int], out_hw: tuple[int, int],

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..config import ALIGN_LEN, INTERP_LEN, KEYFRAMES, OVERLAP
+from ..utils import profiling
 
 
 def compute_scale_and_shift(prediction: torch.Tensor, target: torch.Tensor):
@@ -52,7 +53,8 @@ def stitch_step(carry, depths: torch.Tensor, metric: bool = False):
         scale, shift = compute_scale_and_shift(depths[:ALIGN_LEN],
                                                torch.stack([ref0, ref1]))
         aligned = torch.clamp_min(depths * scale + shift, 0.0)
-    w = fade_weights(depths.device)
+    with profiling.span("vda.pipeline.wait"):    # a pageable copy: waits for the card's queue
+        w = fade_weights(depths.device)
     faded = tail8 * (1.0 - w) + aligned[ALIGN_LEN:OVERLAP] * w
     emit = torch.cat([faded, aligned[OVERLAP:OVERLAP + 14]], dim=0)
     return (ref0, aligned[KEYFRAMES[1]], aligned[-INTERP_LEN:]), emit

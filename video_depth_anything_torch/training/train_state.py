@@ -59,6 +59,7 @@ without a mesh.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import math
@@ -69,6 +70,7 @@ from torch.func import functional_call
 
 from ..config import ModelConfig
 from ..models.video_depth import finish
+from ..utils import profiling
 from . import losses
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -259,21 +261,30 @@ def forward(state: TrainState, video: torch.Tensor, cfg: ModelConfig, train: boo
 
 def loss_fn(state: TrainState, batch: dict, cfg: ModelConfig, tc: TrainConfig,
             phase: Callable[[str], None] | None = None):
-    """-> (total, {"ssi", "tgm"[, "ssi_image"]}); JAX's ``loss_fn``."""
+    """-> (total, {"ssi", "tgm"[, "ssi_image"]}); JAX's ``loss_fn``. The
+    spans ``vda.train.inputs`` and ``vda.train.loss`` around the model's."""
     dev = state.device
-    pred = forward(state, _tensor(batch["video"], dev), cfg, train=True, phase=phase)
-    gt = _tensor(batch["gt"], dev, torch.float32)
-    total, aux = losses.combined_loss(pred, gt, _tensor(batch["mask"], dev),
-                                      ratio_ssi=tc.ratio_ssi, ratio_tgm=tc.ratio_tgm,
-                                      ssi_variant=tc.ssi_variant)
+    with profiling.span("vda.train.inputs"):
+        video = _tensor(batch["video"], dev)
+    pred = forward(state, video, cfg, train=True, phase=phase)
+    with profiling.span("vda.train.loss"):
+        gt = _tensor(batch["gt"], dev, torch.float32)
+        total, aux = losses.combined_loss(pred, gt, _tensor(batch["mask"], dev),
+                                          ratio_ssi=tc.ratio_ssi, ratio_tgm=tc.ratio_tgm,
+                                          ssi_variant=tc.ssi_variant)
     if "image_video" in batch:
         # The single-image SSI branch of the combined dataset.
-        ipred = forward(state, _tensor(batch["image_video"], dev), cfg, train=True, phase=phase)
-        imask = _tensor(batch["image_mask"], dev)
-        im = imask.to(torch.float32)
-        ssi_fn = losses.ssi_loss_lstsq if tc.ssi_variant == "lstsq" else losses.ssi_loss_median
-        l_img = ssi_fn(ipred * im, _tensor(batch["image_gt"], dev, torch.float32) * im, imask)
-        total = total + tc.ratio_ssi_image * l_img
+        with profiling.span("vda.train.inputs"):
+            image_video = _tensor(batch["image_video"], dev)
+        ipred = forward(state, image_video, cfg, train=True, phase=phase)
+        with profiling.span("vda.train.loss"):
+            imask = _tensor(batch["image_mask"], dev)
+            im = imask.to(torch.float32)
+            ssi_fn = (losses.ssi_loss_lstsq if tc.ssi_variant == "lstsq"
+                      else losses.ssi_loss_median)
+            l_img = ssi_fn(ipred * im, _tensor(batch["image_gt"], dev, torch.float32) * im,
+                           imask)
+            total = total + tc.ratio_ssi_image * l_img
         aux = {**aux, "ssi_image": l_img}
     return total, aux
 
@@ -283,34 +294,42 @@ def train_step(state: TrainState, batch: dict, cfg: ModelConfig, tc: TrainConfig
     """One optimisation step, in place -> (state, metrics of 0-d tensors).
     batch: video [B, T, H, W, 3] normalised, gt [B, T, H, W] disparity,
     mask [B, T, H, W] (tensors or arrays). ``phase`` is called with
-    "encoder", "head", "backward", "optimizer" and "end" as each begins."""
-    lr = cosine_lr(tc, state.step)
-    for group in state.opt.param_groups:
-        group["lr"] = lr
-    state.opt.zero_grad(set_to_none=True)
-    with torch.enable_grad():
-        loss, aux = loss_fn(state, batch, cfg, tc, phase)
+    "encoder", "head", "backward", "optimizer" and "end" as each begins;
+    with it, the step's spans (``vda.train.step``, the root, and its
+    stages) add to ``utils.profiling.totals()``."""
+    sink = profiling.collecting() if phase else contextlib.nullcontext()
+    with sink, profiling.span("vda.train.step"):
+        lr = cosine_lr(tc, state.step)
+        for group in state.opt.param_groups:
+            group["lr"] = lr
+        state.opt.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            loss, aux = loss_fn(state, batch, cfg, tc, phase)
+            if phase:
+                phase("backward")
+            with profiling.span("vda.train.backward", device=loss.is_cuda):
+                loss.backward()
+        with profiling.span("vda.train.grad_fill"):
+            for t in state.head.values():   # unreached by the forward: zero, decayed as optax does
+                if t.grad is None:
+                    t.grad = torch.zeros_like(t)
+            metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+        if state.mesh is not None:
+            with profiling.span("vda.train.all_reduce"):
+                _mean_over([t.grad for t in state.head.values()], state.mesh)
+                if state.split is not None:   # the whole tensors: one update on every rank
+                    _mean_over([t.grad for n, t in state.head.items() if n not in state.split],
+                               state.mesh, "model")
+                values = torch.stack(list(metrics.values()))
+                _mean_over([values], state.mesh)
+                metrics = dict(zip(metrics, values.unbind()))
         if phase:
-            phase("backward")
-        loss.backward()
-    for t in state.head.values():   # unreached by the forward: zero, and decayed as optax does
-        if t.grad is None:
-            t.grad = torch.zeros_like(t)
-    metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
-    if state.mesh is not None:
-        _mean_over([t.grad for t in state.head.values()], state.mesh)
-        if state.split is not None:   # the whole tensors: one update on every rank
-            _mean_over([t.grad for n, t in state.head.items() if n not in state.split],
-                       state.mesh, "model")
-        values = torch.stack(list(metrics.values()))
-        _mean_over([values], state.mesh)
-        metrics = dict(zip(metrics, values.unbind()))
-    if phase:
-        phase("optimizer")
-    state.opt.step()
-    if phase:
-        phase("end")
-    state.step += 1
+            phase("optimizer")
+        with profiling.span("vda.train.optimizer"):
+            state.opt.step()
+        if phase:
+            phase("end")
+        state.step += 1
     return state, metrics
 
 

@@ -45,6 +45,7 @@ from torch import nn
 from .. import kernels  # noqa: F401  (registers the vda:: custom ops)
 from ..config import INFER_LEN, ModelConfig
 from ..ops.resize import apply_separable, device_matrix
+from . import profiling
 
 FORMAT = "vda-torch-window-program-v1"
 
@@ -91,9 +92,10 @@ class WindowProgram(nn.Module):
         else:
             depth = torch.func.functional_call(self.model, state, (x,))
         depth = depth.reshape(c * INFER_LEN, *depth.shape[2:], 1).float()
-        if self.resize_out:
-            depth = apply_separable(depth, self.out_h, self.out_w)
-        return torch.relu(depth)[..., 0].reshape(c, INFER_LEN, *self.src_hw)
+        with profiling.span("vda.pipeline.resize"):
+            if self.resize_out:
+                depth = apply_separable(depth, self.out_h, self.out_w)
+            return torch.relu(depth)[..., 0].reshape(c, INFER_LEN, *self.src_hw)
 
 
 def serving_dtype(fp32: bool) -> torch.dtype:
