@@ -13,11 +13,10 @@ printing no result, without either. Phases, each fatal on failure:
       kernel's registers and spills, and the counts of HGMMA (bf16 wgmma),
       IGMMA (int8 wgmma), HMMA (mma.sync), UTMALDG (TMA loads) and SYNCS
       (mbarrier) instructions in each library's SASS (cuobjdump -sass).
-      Fails if K1's, K4's, K6's, the option instances' (K1/K4/K5's
+      Fails if K1's, K4's, K6's, K7's, the option instances' (K1/K4/K5's
       mxu_denom and exp2), T1's, T2's or T3's library lacks HGMMA or
-      UTMALDG, K3's IGMMA or UTMALDG, K2's or K2's backward's HMMA, if T2's
-      or T3's has HMMA
-      (neither runs mma.sync), or if cuobjdump is missing.
+      UTMALDG, K3's IGMMA or UTMALDG, K2's or K2's backward's HMMA, if T2's,
+      T3's or K7's has HMMA (none runs mma.sync), or if cuobjdump is missing.
   (c) K1 spatial attention against its plain version, bf16 and fp32, at
       the encoders' shapes, vitg's [32, 1370, 1536] H 24 (and S 1371)
       among them (strided views of a fused qkv, as the model passes them); then the switches: K1 with mxu_denom, exp2 and both,
@@ -77,6 +76,11 @@ printing no result, without either. Phases, each fatal on failure:
       width on the taps of a 1x32x518x518 window, refinenet4 -> 1 with
       motion modules 2 and 3 between, once with use_kernel=True (7 K6
       launches) and once without (none), both timed and compared.
+  (h') K7, the output head's tail (upsample, 3x3 to 32, ReLU, 1x1), at the
+      benchmark's window shapes (vitl C 1, vits C 4, 518x924) against its
+      plain version (max err / max |y| within 2e-2), the kernel, the plain
+      version, cuDNN's conv with PyTorch's tail, the whole output stage and
+      each stage it replaced timed (tools/bench_head_tail.py).
   (i) the bench tools' measurement kernels at their vitl shape (B = 32,
       S = 1370, keys padded to 1408, H = 16, dh = 64), bf16: T1's four
       phase probes (and qk+sm's side sum) and T3's two QK probes against
@@ -255,6 +259,7 @@ PROBE_MARGIN_S = 0.05                   # marginal card time per tool timing in 
 # The instructions each library's design rests on: wgmma fed by TMA (bf16
 # HGMMA; K3's int8 QK, IGMMA), K2's tensor-core products (HMMA).
 SASS_REQUIRED = {"fused_rcu": ("HGMMA", "UTMALDG"),
+                 "head_output_tail": ("HGMMA", "UTMALDG"),
                  "spatial_attention": ("HGMMA", "UTMALDG"),
                  "attention_head_major": ("HGMMA", "UTMALDG"),
                  "attention_switches": ("HGMMA", "UTMALDG"),
@@ -265,7 +270,8 @@ SASS_REQUIRED = {"fused_rcu": ("HGMMA", "UTMALDG"),
                  "attention_variants": ("HGMMA", "UTMALDG"),
                  "qk_probes": ("HGMMA", "UTMALDG")}
 # T2 is the attention body's instance, T3 a wgmma kernel: no mma.sync.
-SASS_ABSENT = {"attention_variants": ("HMMA",), "qk_probes": ("HMMA",)}
+SASS_ABSENT = {"attention_variants": ("HMMA",), "qk_probes": ("HMMA",),
+               "head_output_tail": ("HMMA",)}
 # Max abs error against the plain version. The spatial kernels' outputs
 # are near-uniform averages of unit-normal v over 1370-1814 keys (mean |o|
 # about 0.03, max 0.2 to 0.7), so bf16 is held to 4e-3: a few times the
@@ -286,6 +292,10 @@ TOL = {"spatial_attention": {"bfloat16": 4e-3, "float32": 1e-4},
        "attention_head_major": {"bfloat16": 4e-3, "float32": 1e-4},
        "spatial_attention_qkv_fused": {"bfloat16": 4e-3, "float32": 1e-4},
        "fused_rcu": {"bfloat16": "2^-7 max|y|", "float32": 1e-4},
+       # K7's error is recorded over max |y|: against its plain version,
+       # which rounds the conv before its bias (tests/test_torch_cuda.py
+       # holds it to its own arithmetic at 4e-3).
+       "head_output_tail": {"bfloat16": "2e-2 of max|y|"},
        # T1's bf16 outputs: one bf16 step of the max (kernel and plain
        # version accumulate in fp32 and round once), two for qk+sm (each
        # exponential is rounded too); its side sum and T3's fp32 outputs:
@@ -828,6 +838,33 @@ def check_probes(record):
     return dict(probes=probe_in, variants=var_in), plain
 
 
+def check_k7(record):
+    """(h'): K7, the output head's tail, against its plain version at the
+    benchmark's window shapes (tools/bench_head_tail.py: vitl at C 1, vits at
+    C 4, 518x924), each stage of the path it replaced timed beside it;
+    returns vitl's entry, vits's under "vits"."""
+    from video_depth_anything_torch.tools import bench_head_tail
+
+    rows = {name: bench_head_tail.bench(name) for name in bench_head_tail.SHAPES}
+    for name, row in rows.items():
+        if not row["err_over_max"] <= 2e-2:
+            raise AssertionError(f"K7 {name}: max err / max |y| {row['err_over_max']:.3e} "
+                                 f"over 2e-2")
+        record("head_output_tail", "bfloat16", row["err_over_max"])
+
+    def entry(row):
+        n, (h, w, c), (oh, ow) = row["frames"], row["map"], row["out"]
+        return dict(shape=[n, h, w, c, oh, ow], dtype="bfloat16", ms=row["k7_ms"],
+                    plain_ms=row["plain_ms"], library_ms=row["library_ms"],
+                    bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                    detail={k: row[k] for k in ("output_ms", "conv1_ms", "resize_ms",
+                                                "conv2a_ms", "conv2b_ms", "k7_roofline_pct")})
+
+    main = entry(rows["vitl-c1"])
+    main["vits"] = entry(rows["vits-c4"])
+    return main
+
+
 def probe_path(cardname, inputs, plain):
     """(i), second part: the two bench tools' functions at their vitl shape
     (the path of T1-T3), launch counts read around them; returns the
@@ -1030,7 +1067,8 @@ def main_path(cardname):
         raise AssertionError(f"bad output: shape {d16.shape}, finite {np.isfinite(d16).all()}")
     want = {name: 0 for name in launches}                 # K3 int8 only, K4-K6 off
     want.update(spatial_attention=cfg.vit.depth * n_win,   # 12 per encode
-                temporal_attention=8 * n_win)               # 4 modules x 2 blocks
+                temporal_attention=8 * n_win,               # 4 modules x 2 blocks
+                head_output_tail=n_win)                     # K7: one per bf16 head
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
 
@@ -1098,7 +1136,8 @@ def int8_path(cardname, d32):
             want = {name: 0 for name in launches}
             want.update(spatial_attention=depth if calib else 0,
                         temporal_attention=8 * (n_win + calib),
-                        spatial_attention_qk8=depth * n_win)
+                        spatial_attention_qk8=depth * n_win,
+                        head_output_tail=n_win + calib)
             if launches != want:
                 raise AssertionError(f"int8 launch counts {launches}, expected {want}")
             runs.append((d8, launches))
@@ -1189,7 +1228,8 @@ def long_video_path(cardname, d32):
     for c in (2, 4):
         for fp32 in (False, True):
             out, got = counted(pipe, frames, windows_per_batch=c, fp32=fp32)
-            expect = want(spatial_attention=depth * steps[c], temporal_attention=8 * steps[c])
+            expect = want(spatial_attention=depth * steps[c], temporal_attention=8 * steps[c],
+                          head_output_tail=0 if fp32 else steps[c])
             name = "fp32" if fp32 else "bf16"
             line = f"long video: C = {c} {name}, 100 frames 480x640: launches {got}"
             if got != expect or out.shape != frames.shape[:3] or not np.isfinite(out).all():
@@ -1221,7 +1261,8 @@ def long_video_path(cardname, d32):
     same = np.array_equal(stream(pipe, short, windows_per_batch=2), out)
     print(f"long video: n = 49, C = 2 (the last chunk all resident): launches {got}; stream "
           f"equals batch bit for bit: {same}", flush=True)
-    if got != want(spatial_attention=depth, temporal_attention=16) or not same:
+    if got != want(spatial_attention=depth, temporal_attention=16,
+                   head_output_tail=2) or not same:
         raise AssertionError("n = 49, C = 2: a zero-size encode ran, or stream != batch")
 
     p16 = VideoDepthPipeline(cfg, model, transfer_fp16=True)
@@ -1242,7 +1283,7 @@ def long_video_path(cardname, d32):
           f"{rep['max_err_frac']:.5f} / mean {rep['mean_err_frac']:.6f} (budget "
           f"{INT8_MAX_ERR_FRAC} / {INT8_MEAN_ERR_FRAC})", flush=True)
     if got8 != want(spatial_attention=depth, temporal_attention=8 * (steps[2] + 1),
-                    spatial_attention_qk8=depth * steps[2]):
+                    spatial_attention_qk8=depth * steps[2], head_output_tail=steps[2] + 1):
         raise AssertionError(f"int8 C = 2 launch counts {got8}")
     if not (rep["max_err_frac"] < INT8_MAX_ERR_FRAC and rep["mean_err_frac"] < INT8_MEAN_ERR_FRAC):
         raise AssertionError(f"int8 C = 2 drift over budget: {rep}")
@@ -1328,7 +1369,8 @@ def vitg_path(cardname):
     print(f"vitg bf16 cached, {len(frames)} frames 518x518, {n_win} windows in {wall:.2f} s "
           f"(first call) on {cardname}: launches {launches}, peak {peak16:.2f} GiB", flush=True)
     want = {name: 0 for name in launches}
-    want.update(spatial_attention=depth * encodes, temporal_attention=8 * n_win)
+    want.update(spatial_attention=depth * encodes, temporal_attention=8 * n_win,
+                head_output_tail=n_win)
     if launches != want or d16.shape != frames.shape[:3] or not np.isfinite(d16).all():
         raise AssertionError(f"vitg bf16: launches {launches} (want {want}), shape {d16.shape}")
     d32, _, wall, peak32 = counted(pipe, fp32=True)
@@ -1346,7 +1388,7 @@ def vitg_path(cardname):
     d8, launches8, wall, peak8 = counted(pipe8)
     want8 = {name: 0 for name in launches8}
     want8.update(spatial_attention=depth, temporal_attention=8 * (n_win + 1),   # + calibration
-                 spatial_attention_qk8=depth * encodes)
+                 spatial_attention_qk8=depth * encodes, head_output_tail=n_win + 1)
     rep8 = precision_drift_report(d8, d32)
     within = (rep8["max_err_frac"] < INT8_MAX_ERR_FRAC
               and rep8["mean_err_frac"] < INT8_MEAN_ERR_FRAC)
@@ -1522,7 +1564,8 @@ def metric_path(cardname):
           f"{rep['max_err_frac']:.5f} / mean {rep['mean_err_frac']:.6f} (budget "
           f"{MAX_ERR_FRAC} / {MEAN_ERR_FRAC})", flush=True)
     want_l = {name: 0 for name in launches}
-    want_l.update(spatial_attention=cfg.vit.depth * n_win, temporal_attention=8 * n_win)
+    want_l.update(spatial_attention=cfg.vit.depth * n_win, temporal_attention=8 * n_win,
+                  head_output_tail=n_win)
     if launches != want_l or not stitch_err <= 1e-6 * float(want.max()):
         raise AssertionError(f"metric path: launches {launches}, stitch error {stitch_err}")
     if not (rep["max_err_frac"] < MAX_ERR_FRAC and rep["mean_err_frac"] < MEAN_ERR_FRAC):
@@ -1986,7 +2029,8 @@ def distributed_path(cardname):
               f"window_forward time (the chunks' device intervals); launches {launches['bf16']}",
               flush=True)
         want = {name: 0 for name in launches["bf16"]}
-        want.update(spatial_attention=cfg.vit.depth * chunks, temporal_attention=8 * chunks)
+        want.update(spatial_attention=cfg.vit.depth * chunks, temporal_attention=8 * chunks,
+                    head_output_tail=chunks)
         if not (same and got.shape == frames.shape[:3] and launches["bf16"] == want):
             raise AssertionError(f"mesh bf16: equal {same}, launches {launches['bf16']}")
         del plain, on_mesh, ref, got
@@ -2020,7 +2064,7 @@ def distributed_path(cardname):
               flush=True)
         want = {name: 0 for name in launches["int8"]}   # + one float calibration forward
         want.update(spatial_attention=cfg.vit.depth, temporal_attention=8 * (chunks + 1),
-                    spatial_attention_qk8=cfg.vit.depth * chunks)
+                    spatial_attention_qk8=cfg.vit.depth * chunks, head_output_tail=chunks + 1)
         if not (same and len(writes) == 1 and os.path.exists(path)
                 and launches["int8"] == want):
             raise AssertionError(f"mesh int8: equal {same}, writes {writes}, "
@@ -2518,9 +2562,10 @@ def model_axis_path(cardname, gen, record):
         launches = {k: recs[0]["launches"][k] for k in ("bf16", "int8", "train_step")}
         zeros = {name: 0 for name in launches["bf16"]}
         want = {"bf16": {**zeros, "spatial_attention": 24 * n_chunks,
-                         "temporal_attention": 8 * n_chunks},
+                         "temporal_attention": 8 * n_chunks, "head_output_tail": n_chunks},
                 "int8": {**zeros, "spatial_attention": 24, "spatial_attention_qk8": 24 * n_chunks,
-                         "temporal_attention": 8 * (n_chunks + 1)},
+                         "temporal_attention": 8 * (n_chunks + 1),
+                         "head_output_tail": n_chunks + 1},
                 "train_step": {**zeros, **TRAIN_STEP_LAUNCHES}}
         rec = {"mesh": [1, 2], "backend": "gloo, CUDA tensors, two processes on cuda:0",
                "gloo": recs[0]["gloo"],
@@ -2614,9 +2659,9 @@ def serving_artifact_path(cardname):
     t0 = time.perf_counter()
     recs, launches = {}, {}
     cases = (("vitl_bf16", dict(encoder="vitl"),
-              {"spatial_attention": 24, "temporal_attention": 8}),
+              {"spatial_attention": 24, "temporal_attention": 8, "head_output_tail": 1}),
              ("vits_int8", dict(encoder="vits", int8=True, cpu_trace=True),
-              {"spatial_attention_qk8": 12, "temporal_attention": 8}))
+              {"spatial_attention_qk8": 12, "temporal_attention": 8, "head_output_tail": 1}))
     for label, kw, want in cases:
         rec = bsa.measure(src_hw=(518, 518), iters=3, cpu_trace=kw.pop("cpu_trace", False), **kw)
         recs[label] = rec
@@ -2970,6 +3015,8 @@ def main() -> int:
     k2 = check_k2(gen, record)
     k6 = check_k6(gen, record)
     torch.cuda.empty_cache()
+    k7 = check_k7(record)
+    torch.cuda.empty_cache()
     probe_inputs, probe_plain = check_probes(record)
     probe_entries, launches_tools = probe_path(cardname, probe_inputs, probe_plain)
     del probe_inputs
@@ -2995,8 +3042,9 @@ def main() -> int:
     # Each kernel's launches are counted on its own path: K1 and K2 on the
     # bf16 main path, K3 on the first int8 call, K4 on the head-dim-32
     # pipeline, K5 on its entry's own run, K6 on the vitl RefineNet cascade,
-    # the K2 backward on the vits train step, T1-T3 on the bench tools' run. T1-T3 are bf16 only (no fp32 error).
-    bf16_only = ("phase_probes", "attention_variants", "qk_probes")
+    # the K2 backward on the vits train step, K7 on the bf16 main path, T1-T3
+    # on the bench tools' run. K7 and T1-T3 are bf16 only (no fp32 error).
+    bf16_only = ("phase_probes", "attention_variants", "qk_probes", "head_output_tail")
     meta = {
         "spatial_attention": dict(
             source="video_depth_anything_torch/csrc/spatial_attention.cu",
@@ -3026,6 +3074,10 @@ def main() -> int:
             source="video_depth_anything_torch/csrc/fused_rcu.cu",
             replaces="video_depth_anything_tpu/ops/pallas_conv.py:125", main=k6,
             path=launches_k6),
+        "head_output_tail": dict(
+            source="video_depth_anything_torch/csrc/head_output_tail.cu",
+            replaces="none: XLA fuses video_depth_anything_tpu/models/dpt.py:151 output_head",
+            main=k7, path=launches),
         "phase_probes": dict(
             source="video_depth_anything_torch/csrc/phase_probes.cu",
             replaces="tools/bench_kernel_phases.py:140", main=probe_entries["phase_probes"],
@@ -3073,7 +3125,8 @@ def main() -> int:
             "bound_by": e["bound_by"], "library_ms": e["library_ms"],
             "shape": e["shape"], "heads": e.get("heads"), "dtype": e["dtype"],
             **{key: e[key] for key in ("library", "probes", "schedules", "derived", "ratio",
-                                       "k1_ms", "k1_mxu_denom_ms", "switches_ms", "vitg")
+                                       "k1_ms", "k1_mxu_denom_ms", "switches_ms", "vitg",
+                                       "vits")
                if key in e},
             **({"detail": e["detail"]} if "detail" in e else {}),
             **({"options_source": "video_depth_anything_torch/csrc/attention_switches.cu"}

@@ -55,7 +55,7 @@ def test_bench_wgmma_k2_backward_shapes_are_the_train_steps_motion_modules():
 
 
 @pytest.mark.parametrize("group", ["rcu", "attention", "qk8", "temporal", "temporal_backward",
-                                   "qk"])
+                                   "qk", "tail"])
 def test_bench_variants_substitutions_are_in_the_sources(group):
     """Every text substitution of ``tools/bench_variants.py`` finds its
     text once in its source, and each variant builds a library the tool

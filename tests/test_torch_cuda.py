@@ -30,6 +30,7 @@ from video_depth_anything_torch.config import ViTConfig, get_model_config
 from video_depth_anything_torch.kernels import attention_head_major as k4
 from video_depth_anything_torch.kernels import attention_variants as t2
 from video_depth_anything_torch.kernels import fused_rcu as k6
+from video_depth_anything_torch.kernels import head_output_tail as k7
 from video_depth_anything_torch.kernels import qk_probes as qp
 from video_depth_anything_torch.kernels import spatial_attention as k1
 from video_depth_anything_torch.kernels import spatial_attention_qk8 as k3
@@ -336,6 +337,116 @@ def test_k6_tile_edges_match_plain_version(card, shape):
     assert _bf16_err_ok(got, ref, 2 ** -7 * ref.float().abs().max().item())
 
 
+def k7_arithmetic(x, w1, b1, w2, b2, out_hw, frames=8):
+    """K7's function at its own rounding points in plain PyTorch: the
+    upsample through ``interp_table`` (two taps, fp32 sum, bf16; rows, then
+    columns), the 3x3 conv in fp32 (TF32 off) with b1 added before the bf16
+    rounding, the fp32 1x1. ``frames`` at a time, to bound the fp32 maps."""
+    import torch.nn.functional as F
+
+    (h, w), (oh, ow) = x.shape[1:3], out_hw
+    rt, ct = (torch.from_numpy(np.array(k7.interp_table(i, o))).to(x.device)
+              for i, o in ((h, oh), (w, ow)))
+    rlo, clo = rt[:, 0].view(torch.int32).long(), ct[:, 0].view(torch.int32).long()
+    outs = []
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for xs in x.split(frames):
+            xf = xs.float()
+            r = rt[:, 1, None, None] * xf[:, rlo] + rt[:, 2, None, None] * xf[:, rlo + 1]
+            r = r.to(torch.bfloat16).float()
+            u = ct[:, 1, None] * r[:, :, clo] + ct[:, 2, None] * r[:, :, clo + 1]
+            u = u.to(torch.bfloat16).float().permute(0, 3, 1, 2)
+            a = F.conv2d(u, w1.to(torch.bfloat16).float(), b1.float(), padding=1)
+            a = torch.relu(a).to(torch.bfloat16).float().permute(0, 2, 3, 1)
+            outs.append(torch.relu(a @ w2.float().reshape(-1, 1) + b2.float()))
+    return torch.cat(outs)
+
+
+def k7_operands(c, gen, device="cuda"):
+    """output_conv2's weights at the init's scale (3x3 C -> 32, 1x1 32 -> 1),
+    in bf16."""
+    w1 = torch.randn(32, c, 3, 3, device=device, generator=gen) * (9 * c) ** -0.5
+    b1 = 0.1 * torch.randn(32, device=device, generator=gen)
+    w2 = torch.randn(1, 32, 1, 1, device=device, generator=gen) * 32 ** -0.5
+    b2 = 0.1 * torch.randn(1, device=device, generator=gen)
+    return tuple(t.to(torch.bfloat16) for t in (w1, b1, w2, b2))
+
+
+K7_CASES = {   # C, N, (h, w): output (14 h / 8, 14 w / 8) for the model's maps, else 2x
+    "2x3": (64, 1, (2, 3)),                 # the least map: one tile, mostly outside
+    "ragged": (128, 3, (40, 56)),           # 70 x 98: neither a multiple of a tile
+    "c48": (48, 2, (40, 56)),               # 16-channel chunks
+    "c192": (192, 2, (72, 40)),             # vitg's width: 4-row tiles
+    "vitl-518x924": (128, 32, (296, 528)), "vits-518x924": (32, 128, (296, 528)),
+    "vitl-518": (128, 32, (296, 296)), "vits-518": (32, 128, (296, 296)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K7_CASES))
+def test_k7_matches_plain_version(card, case):
+    """K7 against its plain version (the PyTorch chain it replaces, which
+    rounds the conv before its bias) within 2e-2 of max |y|, and against
+    its own arithmetic (``k7_arithmetic``: the bias first) within 4e-3 of
+    max |y|, the bf16 kernels' tolerance: the conv's fp32 sums in another
+    order flip a rounding of relu(conv + b1) to bf16 here and there. The two
+    roundings differ by 0.35-0.7 % of max |y| at the model's weights on the
+    CPU (tests/test_torch_head_tail.py). One launch per call."""
+    c, n, in_hw = K7_CASES[case]
+    torch.backends.cudnn.allow_tf32 = False
+    out_hw = tuple(14 * (s // 8) if s % 8 == 0 else 2 * s for s in in_hw)
+    x = torch.randn(n, *in_hw, c, device="cuda", generator=card).to(torch.bfloat16)
+    ops = k7_operands(c, card)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = k7.head_output_tail(x, *ops, out_hw)
+        assert kernels.launch_counts() == counts(head_output_tail=1)
+        plain = k7.head_output_tail_plain(x, *ops, out_hw)
+    exact = k7_arithmetic(x, *ops, out_hw)
+    assert got.shape == (n, *out_hw, 1) and got.dtype == torch.float32
+    top = exact.abs().max().item()
+    err_plain = (got - plain).abs().max().item() / top
+    err_exact = (got - exact).abs().max().item() / top
+    print(f"K7 {case} C {c} N {n} {in_hw} -> {out_hw}: max err / max |y| {err_exact:.2e} "
+          f"(own arithmetic, tol 4e-3), {err_plain:.2e} (plain version, tol 2e-2)")
+    assert err_exact <= 4e-3 and err_plain <= 2e-2
+
+
+@pytest.mark.cuda
+def test_k7_runs_on_the_cards_mixed_island_only(card):
+    """The head's dispatch: a bf16 forward launches K7 once per head call,
+    on a map laid out as the pipeline's (not contiguous); ``train``, fp32 and
+    a C the kernel does not take launch none; the bf16 head within 2e-2 of
+    max |y| of its stages run one by one."""
+    from video_depth_anything_torch.models.dpt import Scratch
+
+    sc = Scratch([32] * 4, 64).to("cuda", torch.bfloat16).eval()
+    path_1 = torch.randn(2, 24, 16, 64, device="cuda", generator=card).to(torch.bfloat16)
+    path_1 = path_1.transpose(1, 2)   # as the resize before it leaves it: H and W swapped
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = sc.output_head(path_1, (28, 42))
+        assert kernels.launch_counts() == counts(head_output_tail=1)
+        ref = sc.head_conv2b(sc.head_conv2a(sc.head_resize(sc.head_conv1(path_1), (28, 42)),
+                                            False), False)
+        sc.output_head(path_1, (28, 42), train=True)
+        copy.deepcopy(sc).float().output_head(path_1.float(), (28, 42))
+        odd = Scratch([40] * 4, 40).to("cuda", torch.bfloat16)
+        odd.output_head(torch.randn(1, 8, 8, 40, device="cuda").to(torch.bfloat16), (14, 14))
+    assert kernels.launch_counts() == counts(head_output_tail=1)
+    assert (got - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_k7_library_holds_wgmma_and_tma(card):
+    """K7's SASS: bf16 wgmma (HGMMA) and TMA loads (UTMALDG), no mma.sync."""
+    from video_depth_anything_torch.kernels import build
+
+    sass = build.sass_counts("head_output_tail")
+    print(f"K7 SASS: {sass}")
+    assert sass["HGMMA"] > 0 and sass["UTMALDG"] > 0 and sass["HMMA"] == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("s", [1, 63, 65, 129, 1370])
 def test_attention_body_sequence_edges_match_plain_versions(card, s):
@@ -531,7 +642,7 @@ def test_overlapped_transfers_equal_blocking_copies(card, c, monkeypatch):
     stream, downloads read one chunk late) against blocking copies from
     pageable memory, bit for bit, over a 5-window video (a race shows up as
     wrong frames); streaming equals the batch API bit for bit; the launches
-    are one encode and one head per chunk."""
+    are one encode and one head (its tail K7) per chunk."""
     cfg = get_model_config("vits")
     model = build_model(cfg, seed=0, device="cuda")
     frames = synthetic_video(n=100, hw=(140, 196), seed=7)
@@ -544,7 +655,8 @@ def test_overlapped_transfers_equal_blocking_copies(card, c, monkeypatch):
     got, _ = pipe.infer_video_depth(frames, **kw)
     steps = 5 if c == 1 else 2
     assert kernels.launch_counts() == counts(spatial_attention=12 * steps,
-                                             temporal_attention=8 * steps)
+                                             temporal_attention=8 * steps,
+                                             head_output_tail=steps)
     np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(_stream(pipe, frames, **kw), got)
     hp = VideoDepthPipeline(cfg, model, transfer_fp16=True)
@@ -562,7 +674,8 @@ def test_fully_resident_last_chunk_on_the_card(card):
     frames = synthetic_video(n=49, hw=(140, 196), seed=8)
     kernels.reset_launch_counts()
     got, _ = pipe.infer_video_depth(frames, input_size=112, windows_per_batch=2)
-    assert kernels.launch_counts() == counts(spatial_attention=12, temporal_attention=16)
+    assert kernels.launch_counts() == counts(spatial_attention=12, temporal_attention=16,
+                                             head_output_tail=2)
     assert got.shape == frames.shape[:3] and np.isfinite(got).all()
     np.testing.assert_array_equal(
         _stream(pipe, frames, input_size=112, windows_per_batch=2), got)
@@ -650,7 +763,7 @@ def test_k6_at_vitg_width(card, shape):
 @pytest.mark.cuda
 def test_vitg_window_peak_memory(card):
     """One vitg window (22 frames at 518 x 518, one window of 32 rows, bf16)
-    through the pipeline: 40 K1 launches (one encode), 8 K2; finite depths;
+    through the pipeline: 40 K1 launches (one encode), 8 K2, one K7; finite depths;
     its peak device memory, with the fp32 weights (5.1 GiB with the head)
     and their bf16 copy resident, is printed."""
     cfg = get_model_config("vitg")
@@ -661,7 +774,8 @@ def test_vitg_window_peak_memory(card):
     got, _ = pipe.infer_video_depth(frames)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"vitg 518x518, one window, bf16: peak {peak:.2f} GiB")
-    assert kernels.launch_counts() == counts(spatial_attention=40, temporal_attention=8)
+    assert kernels.launch_counts() == counts(spatial_attention=40, temporal_attention=8,
+                                             head_output_tail=1)
     assert got.shape == (22, 518, 518) and np.isfinite(got).all()
     assert peak < 40
 
@@ -793,7 +907,9 @@ def test_forward_only_kernels_refuse_grad(card):
              lambda: k4.attention_head_major(*(t.unflatten(-1, (6, 64)).transpose(1, 2)
                                                for t in (q, k, v)), scale=0.125),
              lambda: k5.spatial_attention_qkv_fused(qkv, num_heads=6),
-             lambda: k6.fused_rcu(x, w, b, w, b)]
+             lambda: k6.fused_rcu(x, w, b, w, b),
+             lambda: k7.head_output_tail(x[..., :64].contiguous(), *k7_operands(64, card),
+                                         (14, 14))]
     kernels.reset_launch_counts()
     for call in calls:
         with pytest.raises(RuntimeError, match="has no backward"):
@@ -882,7 +998,8 @@ def test_serving_artifact_launches_the_kernels_and_raises_without_them(card, tra
         kernels.reset_launch_counts()
         got = run(state, win)
         assert kernels.launch_counts() == want_n == counts(spatial_attention=2,
-                                                            temporal_attention=8)
+                                                            temporal_attention=8,
+                                                            head_output_tail=1)
         assert torch.equal(got, want)
 
         def missing(name):

@@ -14,8 +14,8 @@ after a second export in the same process (a trace may not leave a fake
 tensor in the resize or normalisation caches: the regression test of that
 fault); the int8 artifact against the pipeline's int8 program bit for bit,
 and ``quantize_for_serving`` against ``VideoDepthPipeline.quantized_model``;
-bf16 at C = 2 against live; the graph's ``vda::`` nodes against the blocks
-and motion modules run; the metadata; a model split over a model axis
+bf16 at C = 2 against live; the graph's ``vda::`` nodes against the blocks,
+motion modules and bf16 output tails run; the metadata; a model split over a model axis
 refused; ``torch.library.opcheck`` on each served op's CPU implementation;
 the export tool's ``--verify`` on the CPU and its exit without a card.
 """
@@ -179,7 +179,8 @@ def test_int8_state_dict_equals_the_pipelines(model):
 def test_int8_artifact_equals_the_pipelines_int8_program(model, tmp_path):
     win = _window(seed=5)
     ep = se.export_window_program(T_CFG, SRC, input_size=INPUT, device="cpu", quant="int8")
-    assert se.vda_op_counts(ep) == {"spatial_attention_qk8": 2, "temporal_attention": 8}
+    assert se.vda_op_counts(ep) == {"spatial_attention_qk8": 2, "temporal_attention": 8,
+                                    "head_output_tail": 1}
     path = se.save_exported(ep, str(tmp_path / "int8.pt2"))
     state = se.quantize_for_serving(model, win, T_CFG, NET)
     got = se.artifact_module(se.load_exported(path))(state, torch.from_numpy(win))
@@ -264,7 +265,8 @@ def test_export_tool_verifies_on_the_cpu(tmp_path):
     assert "verify: artifact output == live program (bit-exact)" in res.stdout
     meta = json.load(open(str(out) + ".json"))
     assert meta["quant"] == "int8" and meta["device"] == "cpu" and meta["src_hw"] == [30, 40]
-    assert meta["vda_ops"] == {"spatial_attention_qk8": 12, "temporal_attention": 8}
+    assert meta["vda_ops"] == {"spatial_attention_qk8": 12, "temporal_attention": 8,
+                               "head_output_tail": 1}
 
 
 def test_export_tool_without_a_card_exits(tmp_path):

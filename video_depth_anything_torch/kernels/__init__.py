@@ -6,11 +6,12 @@ Every kernel the model calls is a ``torch.library`` custom op in the
 ``vda::spatial_attention_qk8`` (K3, with its fallback),
 ``vda::temporal_attention`` (K2) and ``vda::temporal_attention_backward``
 (its gradient), ``vda::spatial_attention_qkv_fused`` (K5),
-``vda::attention_head_major`` (K4, the functional form) and
-``vda::fused_rcu`` (K6). Each op's CPU implementation is the kernel's plain
-version, its CUDA implementation the kernel through its ctypes binding (a
-failed build or launch raises), and its fake implementation gives the
-output's shape, dtype and strides without reading the inputs, so
+``vda::attention_head_major`` (K4, the functional form),
+``vda::fused_rcu`` (K6) and ``vda::head_output_tail`` (K7). Each op's CPU
+implementation is the kernel's plain version, its CUDA implementation the
+kernel through its ctypes binding (a failed build or launch raises), and
+its fake implementation gives the output's shape, dtype and strides
+without reading the inputs, so
 ``torch.export`` records the op whatever device it traces on
 (``utils/serving_export.py``) and a shapes-only run on the ``meta`` device
 goes through. The Python wrappers refuse a gradient (``grad.py``) and then
@@ -29,8 +30,8 @@ wrappers.
 """
 from __future__ import annotations
 
-from . import (attention_head_major, attention_variants, fused_rcu, qk_probes,
-               spatial_attention, spatial_attention_qk8, spatial_attention_qkv,
+from . import (attention_head_major, attention_variants, fused_rcu, head_output_tail,
+               qk_probes, spatial_attention, spatial_attention_qk8, spatial_attention_qkv,
                temporal_attention)
 
 KERNELS = {
@@ -41,6 +42,7 @@ KERNELS = {
     "attention_head_major": attention_head_major.attention_head_major,
     "spatial_attention_qkv_fused": spatial_attention_qkv.spatial_attention_qkv_fused,
     "fused_rcu": fused_rcu.fused_rcu,
+    "head_output_tail": head_output_tail.head_output_tail,
     # The measurement kernels of the bench tools (tools/bench_kernel_*.py).
     "phase_probes": qk_probes.phase_probe,
     "attention_variants": attention_variants.attention_variant,

@@ -14,6 +14,10 @@ where ``rcu_supported`` holds (C % 128 == 0: vitb, vitl, vitg) the unit
 runs kernel K6 (``kernels/fused_rcu.py``), otherwise the two-conv path
 (a BatchNorm unit always takes it: the gate excludes BN, as JAX's does).
 The head never sets it, as the JAX head does not.
+
+The output head's full-resolution tail runs as kernel K7
+(``kernels/head_output_tail.py``) on the mixed island on a card, and in a
+trace for the serving artifact (``Scratch.fused_tail``).
 """
 from __future__ import annotations
 
@@ -21,8 +25,9 @@ import torch
 from torch import nn
 
 from ..kernels.fused_rcu import fused_rcu, kernel_weight, rcu_supported
+from ..kernels.head_output_tail import head_output_tail, tail_supported
 from ..ops import nn as vnn
-from ..ops.resize import resize_bilinear_align_corners
+from ..ops.resize import resize_bilinear_align_corners, tracing
 
 
 def _conv(features_in: int, features_out: int, k: int, bias: bool = True):
@@ -130,11 +135,29 @@ class Scratch(nn.Module):
         the bias to the fp32 accumulator, then rounds).
         Returns [N, H, W, 1] fp32. The stages are called nested, so no
         name here holds the full-resolution map: ``head_conv2a`` frees it
-        once its conv has read it.
+        once its conv has read it. Where ``fused_tail`` holds, everything
+        after ``head_conv1`` is kernel K7, which holds no full-resolution
+        map in device memory and adds the bias before the conv's rounding.
         """
+        if self.fused_tail(path_1, out_hw, train):
+            # K7 takes a contiguous NHWC map; cuDNN writes one from a contiguous
+            # NHWC input, and the resize before leaves H and W swapped in memory.
+            c2a, c2b = self.output_conv2[0], self.output_conv2[2]
+            x = self.head_conv1(path_1.contiguous()).contiguous()
+            return head_output_tail(x, c2a.weight, c2a.bias, c2b.weight, c2b.bias, out_hw)
         island = path_1.dtype == torch.float32 or train
         return self.head_conv2b(
             self.head_conv2a(self.head_resize(self.head_conv1(path_1), out_hw), island), island)
+
+    def fused_tail(self, path_1: torch.Tensor, out_hw, train: bool = False) -> bool:
+        """Whether ``output_head`` runs its tail as K7: the mixed island (not
+        ``train``) at a shape the kernel takes (bf16, ``tail_supported``), on
+        a card or in a trace (``torch.export``: the artifact holds the op,
+        whose CPU implementation is this file's path). The CPU, the fp32
+        island and other shapes take the stages below."""
+        return (not train and (path_1.is_cuda or tracing())
+                and tail_supported(path_1.dtype, self.output_conv1.out_channels,
+                                   path_1.shape[1:3], out_hw))
 
     def head_conv1(self, x: torch.Tensor) -> torch.Tensor:
         """output_conv1: 3x3, features -> features // 2."""

@@ -60,12 +60,15 @@ class DPTHeadTemporal(nn.Module):
         depth [B*T, 14*ph, 14*pw, 1] fp32. With ``stats``, each motion
         module's calibration tree lands there under "0".."3". ``train``:
         the output head's full fp32 island (``Scratch.output_head``). The
-        span ``vda.head`` (device time on a card), its stages ``vda.head.*``."""
+        span ``vda.head`` (device time on a card), its stages ``vda.head.*``;
+        ``vda.head.output`` counts ``fused``, the calls whose tail ran K7."""
         with profiling.span("vda.head", device=feats[0][0].is_cuda):
             layers = self.refine_inputs(feats, ph, pw, b, t, stats)
             path_1 = self.cascade(layers, lambda i, path: self.tmod(i, path, b, t, stats))
-            with profiling.span("vda.head.output"):
-                return self.scratch.output_head(path_1, (14 * ph, 14 * pw), train=train)
+            out_hw = (14 * ph, 14 * pw)
+            with profiling.span("vda.head.output") as sp:
+                sp.add(fused=int(self.scratch.fused_tail(path_1, out_hw, train)))
+                return self.scratch.output_head(path_1, out_hw, train=train)
 
     def cascade(self, layers, between) -> torch.Tensor:
         """The RefineNet cascade refinenet4 -> refinenet1 on l1..l4 ->

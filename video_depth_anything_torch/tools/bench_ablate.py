@@ -154,7 +154,9 @@ def _conv2b_slice(self, x, island):
     return vnn.relu(x[..., :1].float().contiguous())
 
 
-# --head: each stage of ``Scratch.output_head`` and its stub.
+# --head: each stage of ``Scratch.output_head`` and its stub. On a card's bf16
+# path everything after head_conv1 is kernel K7 (``Scratch.fused_tail``), so
+# there only conv1's stub takes effect; the others ablate the fp32 island.
 HEAD_STUBS = (("conv1", "head_conv1", _conv1_slice), ("resize", "head_resize", _resize_repeat),
               ("conv2a", "head_conv2a", _conv2a_slice), ("conv2b", "head_conv2b", _conv2b_slice))
 

@@ -1,7 +1,7 @@
 """Card diagnosis of the wgmma kernels: build edited copies of their
 sources and time each beside the shipped one.
 
-    python -m video_depth_anything_torch.tools.bench_variants [rcu|attention|qk8|temporal|temporal_backward|qk|all]
+    python -m video_depth_anything_torch.tools.bench_variants [rcu|attention|qk8|temporal|temporal_backward|qk|tail|all]
 
 Each variant is a list of text substitutions into a copy of ``csrc/``
 (under ``_build/variants/``, gitignored), compiled with the build's own
@@ -16,8 +16,9 @@ CUDA events (``tools/timing.py``; K2's replayed from a CUDA graph), bf16, at K6'
 shapes of the main path, [7252, 32, 64], [1813, 32, 192], [475, 32, 384]
 and [1813, 32, 64], at the K2 backward's six shapes (``bench_wgmma.py``'s
 K2_BWD_SHAPES, replayed from a CUDA graph), and at T3's 64 steps of 1408
-rows x 1408 keys (both probes, replayed from a CUDA graph). Needs a CUDA
-card and exits 2 without one.
+rows x 1408 keys (both probes, replayed from a CUDA graph), and K7 at the
+vitl window's tail (C 128, N 32, 296x528 -> 518x924). Needs a CUDA card
+and exits 2 without one.
 """
 from __future__ import annotations
 
@@ -39,6 +40,12 @@ _QK_NO_STORES = ("qk_probes.cu", "*reinterpret_cast<float2*>(orow + nb * 8) = v;
                  "if (v.x == 0x1p40f) *reinterpret_cast<float2*>(orow + nb * 8) = v;")
 _QK_NO_PRODUCTS = ("qk_probes.cu", "          wgmma_ss_n128<0, 0>(acc[h]",
                    "          if (a.M < 0) wgmma_ss_n128<0, 0>(acc[h]")
+
+_TAIL_NO_PRODUCTS = ("head_output_tail.cu", "wgmma_rs<NOUT, 0>(acc[hr - dy],",
+                     "if (0) wgmma_rs<NOUT, 0>(acc[hr - dy],")
+_TAIL_NO_PASS1 = ("head_output_tail.cu", "i < G8 * sbw; i += UP", "i < 0; i += UP")
+_TAIL_NO_PASS2 = [("head_output_tail.cu", "      rows_issue(acc[0], uwg);", ""),
+                  ("head_output_tail.cu", "rows_issue(acc[(k + 1) & 1], uwg + 2 * (k + 1));", "")]
 
 # name -> (library, [(file, old, new), ...])
 VARIANTS = {
@@ -151,11 +158,21 @@ VARIANTS = {
         "no products": ("qk_probes", [_QK_NO_PRODUCTS]),
         "loads only": ("qk_probes", [_QK_NO_PRODUCTS, _QK_NO_STORES]),
     },
+    "tail": {
+        "shipped": ("head_output_tail", []),
+        "no products": ("head_output_tail", [_TAIL_NO_PRODUCTS]),
+        "no row pass": ("head_output_tail", [_TAIL_NO_PASS1]),
+        "no column pass": ("head_output_tail", _TAIL_NO_PASS2),
+        "no upsample": ("head_output_tail", [_TAIL_NO_PASS1, *_TAIL_NO_PASS2]),
+        "loads and stores only": ("head_output_tail", [_TAIL_NO_PASS1, *_TAIL_NO_PASS2,
+                                                       _TAIL_NO_PRODUCTS]),
+    },
 }
 _LIBS = {"fused_rcu": ("fused_rcu",), "both": ("attention_head_major", "spatial_attention"),
          "spatial_attention_qk8": ("spatial_attention_qk8",),
          "temporal_attention": ("temporal_attention",), "qk_probes": ("qk_probes",),
-         "temporal_attention_backward": ("temporal_attention_backward",)}
+         "temporal_attention_backward": ("temporal_attention_backward",),
+         "head_output_tail": ("head_output_tail",)}
 
 
 def _build_variants(group: str) -> dict[str, dict[str, str]]:
@@ -313,6 +330,26 @@ def _time_qk(built, gen):
                   flush=True)
 
 
+@torch.no_grad()
+def _time_tail(built, gen):
+    from ..kernels import head_output_tail as k7
+
+    x = torch.randn(32, 296, 528, 128, device="cuda", generator=gen).to(torch.bfloat16)
+    ops = (torch.randn(32, 128, 3, 3, device="cuda", generator=gen) * 0.03,
+           0.1 * torch.randn(32, device="cuda", generator=gen),
+           torch.randn(1, 32, 1, 1, device="cuda", generator=gen) * 0.18,
+           0.1 * torch.randn(1, device="cuda", generator=gen))
+    ops = tuple(t.to(torch.bfloat16) for t in ops)
+    ref = k7.head_output_tail_plain(x, *ops, (518, 924))
+    for rep in range(2):
+        for name, libs in built.items():
+            build._LIBS["head_output_tail"] = ctypes.CDLL(libs["head_output_tail"])
+            err = (k7.head_output_tail(x, *ops, (518, 924)) - ref).abs().max().item()
+            ms = time_ms(lambda: k7.head_output_tail(x, *ops, (518, 924)), 10)
+            print(f"K7 [32, 296, 528, 128] {name:22s} (round {rep + 1}) {ms:.4f} ms "
+                  f"(max abs err {err:.3e})", flush=True)
+
+
 def main() -> int:
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     if which not in (*VARIANTS, "all"):
@@ -327,7 +364,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     for group, timer in (("rcu", _time_rcu), ("attention", _time_attention), ("qk8", _time_qk8),
                          ("temporal", _time_temporal),
-                         ("temporal_backward", _time_temporal_backward), ("qk", _time_qk)):
+                         ("temporal_backward", _time_temporal_backward), ("qk", _time_qk),
+                         ("tail", _time_tail)):
         if which in (group, "all"):
             timer(_build_variants(group), gen)
             build._LIBS.update(shipped)

@@ -60,7 +60,8 @@ totals its count and host seconds, and those marked also:
 - ``vda.head``: ``DPTHeadTemporal.forward``; device seconds. Its
   stages in order ``vda.head.project``, ``.motion0``, ``.motion1``, ``.rn``,
   ``.refinenet4``, ``.motion2``, ``.refinenet3``, ``.motion3``,
-  ``.refinenet2``, ``.refinenet1``, ``.output``.
+  ``.refinenet2``, ``.refinenet1``, ``.output`` (counter fused: the calls
+  whose tail ran kernel K7).
 - ``vda.train.step``: ``train_step``, the root. Its stages
   ``vda.train.inputs``, ``.loss``, ``.backward`` (device seconds),
   ``.grad_fill``, ``.all_reduce`` (on a mesh), ``.optimizer``; the
