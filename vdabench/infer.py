@@ -40,7 +40,8 @@ PIPELINE_KEYS = {"quant"}   # VideoDepthPipeline's options a traffic file sets
 # option is silently left out of a run.
 CONFIG_KEYS = {"name", "source", "model", "encoder", "embed_dim", "depth", "num_heads",
                "mlp_ratio", "patch_size", "img_size", "taps", "features", "out_channels",
-               "motion_heads", "num_frames", "dtype", "metric", "reduced", "assumed"}
+               "motion_heads", "num_frames", "dtype", "metric", "ffn_layer", "reduced",
+               "assumed"}
 TRAFFIC_KEYS = {"name", "mode", "source_hw", "pool_frames", "scene", "clip_frames", "lengths",
                 "warmup_lengths", "input_size", "windows_per_batch", "clients", "profile_s",
                 "entry", "pipeline"}
@@ -60,6 +61,9 @@ def validate(cell) -> None:
         raise ValueError(f"{cell.name}: entry {tr.get('entry')!r}, clients {tr['clients']}, "
                          f"dtype {cell.config['dtype']!r}: the harness runs {ENTRIES}, "
                          f"one client, {sorted(DTYPES)}")
+    if cell.config.get("ffn_layer", "mlp") not in ref_model.FFN_LAYERS:
+        raise ValueError(f"{cell.name}: ffn_layer {cell.config['ffn_layer']!r}: the harness "
+                         f"runs {sorted(ref_model.FFN_LAYERS)}")
 
 
 def port_config(config: dict):
@@ -68,7 +72,8 @@ def port_config(config: dict):
 
     vit = ViTConfig(embed_dim=config["embed_dim"], depth=config["depth"],
                     num_heads=config["num_heads"], mlp_ratio=config["mlp_ratio"],
-                    patch_size=config["patch_size"], img_size=config["img_size"])
+                    patch_size=config["patch_size"], img_size=config["img_size"],
+                    ffn_layer=config.get("ffn_layer", "mlp"))
     return ModelConfig(encoder=config["encoder"], features=config["features"],
                        out_channels=tuple(config["out_channels"]),
                        num_frames=config["num_frames"],

@@ -4,7 +4,9 @@ reference forward.
 Written from the published model (github.com/DepthAnything/
 Video-Depth-Anything: ``video_depth_anything/dinov2.py``, ``dpt.py``,
 ``dpt_temporal.py``, ``motion_module/motion_module.py``,
-``util/blocks.py``), with the original checkpoint's module names, so one
+``util/blocks.py``; the fused SwiGLU FFN of the ``vitg`` encoder from
+github.com/facebookresearch/dinov2: ``dinov2/layers/swiglu_ffn.py``
+``SwiGLUFFNFused``), with the original checkpoint's module names, so one
 state dict with the keys ``pretrained.*`` and ``head.*`` loads into this
 module and into the program alike. No kernel, cache or batching of the
 program: attention is ``softmax(q k^T * scale) v`` in matmuls.
@@ -120,6 +122,27 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x)))
 
 
+class SwiGLUFFNFused(nn.Module):
+    """DINOv2's fused SwiGLU FFN (``ffn_layer="swiglufused"``, the vitg
+    encoder's): ``w12`` to twice the hidden size, ``silu(x1) * x2``, ``w3``
+    back. The hidden size is 2/3 of the MLP's, rounded up to a multiple of
+    8 (4096 at width 1536)."""
+
+    def __init__(self, dim: int, mlp_hidden: int):
+        super().__init__()
+        hidden = (int(mlp_hidden * 2 / 3) + 7) // 8 * 8
+        self.w12 = nn.Linear(dim, 2 * hidden)
+        self.w3 = nn.Linear(hidden, dim)
+
+    def forward(self, x):
+        x1, x2 = self.w12(x).chunk(2, dim=-1)
+        return self.w3(F.silu(x1) * x2)
+
+
+# The encoder blocks' FFN, by the configuration's ``ffn_layer``.
+FFN_LAYERS = {"mlp": Mlp, "swiglufused": SwiGLUFFNFused}
+
+
 class LayerScale(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
@@ -130,13 +153,15 @@ class LayerScale(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, dim: int, heads: int, mlp_ratio: float):
+    def __init__(self, dim: int, heads: int, mlp_ratio: float, ffn_layer: str = "mlp"):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, heads)
         self.ls1 = LayerScale(dim)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        if ffn_layer not in FFN_LAYERS:
+            raise ValueError(f"unknown ffn_layer {ffn_layer!r}: {sorted(FFN_LAYERS)}")
+        self.mlp = FFN_LAYERS[ffn_layer](dim, int(dim * mlp_ratio))
         self.ls2 = LayerScale(dim)
 
     def forward(self, x):
@@ -155,7 +180,8 @@ class DinoVisionTransformer(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, n + 1, d))
         self.mask_token = nn.Parameter(torch.zeros(1, d))
         self.patch_embed = PatchEmbed(d, p)
-        self.blocks = nn.ModuleList(Block(d, cfg["num_heads"], cfg["mlp_ratio"])
+        ffn = cfg.get("ffn_layer", "mlp")
+        self.blocks = nn.ModuleList(Block(d, cfg["num_heads"], cfg["mlp_ratio"], ffn)
                                     for _ in range(cfg["depth"]))
         self.norm = nn.LayerNorm(d, eps=1e-6)
 

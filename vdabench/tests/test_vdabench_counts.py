@@ -1,11 +1,12 @@
 """The benchmark's operation and byte counts against the bounds PERF.md's
-kernel table states, and FlopCounterMode's count of a vits window
-against a hand count."""
+kernel table states, and FlopCounterMode's count of a vits window and of
+a tiny fused-SwiGLU encoder against a hand count."""
 from __future__ import annotations
 
 import pytest
 
 from vdabench import counts, spec
+from vdabench.tests import tiny
 
 
 def test_k1_bound_at_the_table_shape():
@@ -45,6 +46,18 @@ def test_flop_counter_matches_a_hand_count_of_the_vits_encoder():
     patch = 2 * 37 * 37 * d * 3 * 14 * 14
     assert f["encoder"] == pytest.approx(blocks * (linears + attention) + patch, rel=1e-9)
     assert f["head"] > 0
+
+
+def test_flop_counter_matches_a_hand_count_of_a_swiglu_encoder():
+    cfg = dict(tiny.CONFIG, ffn_layer="swiglufused")
+    f = counts.model_flops(cfg, (518, 518), 32)
+    d, s, blocks = cfg["embed_dim"], 1 + 37 * 37, max(cfg["taps"]) + 1
+    h = (int(int(d * cfg["mlp_ratio"]) * 2 / 3) + 7) // 8 * 8
+    assert h == 176
+    linears = 2 * s * (3 * d * d + d * d) + 2 * s * (d * 2 * h + h * d)
+    attention = 4 * s * s * d
+    patch = 2 * 37 * 37 * d * 3 * 14 * 14
+    assert f["encoder"] == pytest.approx(blocks * (linears + attention) + patch, rel=1e-9)
 
 
 def test_train_flops_count_the_head_backward():

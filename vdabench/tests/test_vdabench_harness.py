@@ -14,10 +14,13 @@ must turn ``correct`` false:
   second window replaced by the window before it;
 - a lower precision in the encoder: its taps rounded to bfloat16, which
   the depth (through the head) barely shows and the taps do; and the
-  program's own int8 path, which the encoder's branches show.
+  program's own int8 path, which the encoder's branches show;
+- the fused SwiGLU FFN's gate on the wrong half (``silu(x2) * x1``),
+  which the encoder's branches show.
 
-The traffic's options reach the program: the streaming entry, the
-metric model's stitch, and the pipeline's int8 option.
+The files' options reach the program: the streaming entry, the metric
+model's stitch, the encoder's FFN kind, and the pipeline's int8 option;
+an FFN kind the harness does not run is refused.
 """
 from __future__ import annotations
 
@@ -130,11 +133,32 @@ def test_an_encoder_in_a_lower_precision_is_not_correct(tmp_path, monkeypatch):
     ({"entry": "infer_video_depth_streaming"}, {}),
     (dict(BATCHED_3, entry="infer_video_depth_streaming"), {}),
     (SEQUENTIAL_3, {"metric": True}),
-], ids=["streaming", "streaming-c4", "metric"])
+    ({}, {"ffn_layer": "swiglufused"}),
+], ids=["streaming", "streaming-c4", "metric", "swiglu"])
 def test_an_entry_or_model_option_from_the_files_is_correct(tmp_path, traffic, config):
     line = _run(tmp_path, traffic=traffic, config=dict(FP32, **config))
     assert line["correct"] and line["checks"]["tap_err_pct"]["value"] < 1e-3
     assert line["checks"]["branch_err_pct"]["value"] < 1e-3
+
+
+def test_a_swiglu_gate_on_the_wrong_half_is_not_correct(tmp_path, monkeypatch):
+    import torch.nn.functional as F
+
+    from video_depth_anything_torch.models import dinov2
+
+    def swapped(self, x, stats=None):
+        x1, x2 = self.w12(x).chunk(2, dim=-1)
+        return self.w3(F.silu(x2) * x1)
+
+    monkeypatch.setattr(dinov2.SwiGLUFFNFused, "forward", swapped)
+    line = _run(tmp_path, config=dict(FP32, ffn_layer="swiglufused"))
+    assert not line["correct"]
+    assert line["checks"]["branch_err_pct"]["value"] > LIMITS["branch_err_pct"]
+
+
+def test_an_ffn_layer_the_harness_does_not_run_is_refused(tmp_path):
+    with pytest.raises(ValueError, match="ffn_layer 'geglu'"):
+        _run(tmp_path, config={"ffn_layer": "geglu"})
 
 
 def test_the_pipelines_int8_path_is_not_correct(tmp_path):

@@ -1,6 +1,8 @@
 """The reference (``vdabench/reference/``) against the program's plain CPU
 path at a tiny size, float32, on the same seeded state dict: the
-encoder's taps, the head, and a stitched clip of three windows."""
+encoder's taps, the head, and a stitched clip of three windows, with
+each FFN kind a configuration may name (``ffn_layer``); and the vitg
+encoder's module tree at its published widths on the meta device."""
 from __future__ import annotations
 
 import numpy as np
@@ -15,23 +17,38 @@ from vdabench.tests import tiny
 CFG = dict(tiny.CONFIG, dtype="float32")
 
 
-@pytest.fixture(scope="module")
-def models():
+# vitg at its published widths: DINOv2 ViT-g/14 (dinov2_vitg14, vit_giant2,
+# ffn_layer "swiglufused"), the head of Depth-Anything-V2's
+# model_configs['vitg'] and Video-Depth-Anything's intermediate_layer_idx.
+VITG = {"source": "the vitg encoder's published widths", "encoder": "vitg",
+        "embed_dim": 1536, "depth": 40, "num_heads": 24, "mlp_ratio": 4, "patch_size": 14,
+        "img_size": 518, "taps": [9, 19, 29, 39], "features": 384, "out_channels": [1536] * 4,
+        "motion_heads": 8, "num_frames": 32, "dtype": "bfloat16", "ffn_layer": "swiglufused",
+        "reduced": [], "assumed": {}}
+
+
+@pytest.fixture(scope="module", params=["mlp", "swiglufused"])
+def models(request):
+    cfg = dict(CFG, ffn_layer=request.param)
     torch.manual_seed(0)
-    sd = weights.state_dict(infer.reference_shapes(CFG), 2**31 + 17, torch.device("cpu"),
+    sd = weights.state_dict(infer.reference_shapes(cfg), 2**31 + 17, torch.device("cpu"),
                             torch.float32)
-    return (infer.program_model(CFG, sd, "cpu"), infer.reference_model(CFG, sd, "cpu"), sd)
+    return (infer.program_model(cfg, sd, "cpu"), infer.reference_model(cfg, sd, "cpu"), sd, cfg)
 
 
 def test_state_dict_has_the_checkpoint_keys(models):
-    port, ref, sd = models
+    port, ref, sd, cfg = models
     assert set(sd) == set(port.state_dict()) == set(ref.state_dict())
     assert all(k.startswith(("pretrained.", "head.")) for k in sd)
     assert sd[weights.LAST_BIAS].min() > weights.OUTPUT_BIAS - 1
+    ffn = {k.split(".mlp.")[1] for k in sd if ".mlp." in k}
+    assert ffn == ({"fc1.weight", "fc1.bias", "fc2.weight", "fc2.bias"}
+                   if cfg["ffn_layer"] == "mlp" else
+                   {"w12.weight", "w12.bias", "w3.weight", "w3.bias"})
 
 
 def test_encoder_and_head_agree(models):
-    port, ref, _ = models
+    port, ref, _, _ = models
     g = torch.Generator().manual_seed(3)
     x = torch.randn(4, 42, 56, 3, generator=g)
     with torch.no_grad():
@@ -49,11 +66,11 @@ def test_encoder_and_head_agree(models):
 def test_stitched_clip_agrees(models):
     from video_depth_anything_torch.pipeline.infer import VideoDepthPipeline
 
-    port, ref, _ = models
+    port, ref, _, cfg = models
     tr = dict(tiny.TRAFFIC)
     pool = traffic.frame_pool(tr, 4, torch.device("cpu"))
     clip = pool[:60]                      # three windows: the cache and two stitches
-    pipe = VideoDepthPipeline(infer.port_config(CFG), port, device="cpu")
+    pipe = VideoDepthPipeline(infer.port_config(cfg), port, device="cpu")
     got, _ = pipe.infer_video_depth(clip, input_size=tr["input_size"], fp32=True)
     want = ref_pipeline.infer_video_depth(ref, torch.from_numpy(clip), tr["input_size"]).numpy()
     assert got.shape == want.shape == (60, *tr["source_hw"])
@@ -78,3 +95,22 @@ def test_reference_model_keys_need_no_program():
     with torch.device("meta"):
         m = ref_model.VideoDepthAnything(CFG)
     assert any(k.endswith("pos_encoder.pe") for k in m.state_dict())
+
+
+def test_vitg_module_tree_is_the_programs_at_published_widths():
+    from video_depth_anything_torch.models.video_depth import VideoDepthAnything
+
+    ref = infer.reference_shapes(VITG)
+    with torch.device("meta"):
+        port = VideoDepthAnything(infer.port_config(VITG))
+    want = {k: tuple(t.shape) for k, t in ref.state_dict().items()}
+    assert want == {k: tuple(t.shape) for k, t in port.state_dict().items()}
+    assert want["pretrained.blocks.39.mlp.w12.weight"] == (8192, 1536)
+    assert want["pretrained.blocks.0.mlp.w3.weight"] == (1536, 4096)
+    assert len([k for k in want if k.endswith(".mlp.w12.weight")]) == 40
+    assert set(weights.rules(ref)) == set(want)
+
+
+def test_an_unknown_ffn_layer_is_refused():
+    with pytest.raises(ValueError, match="ffn_layer"):
+        infer.reference_shapes(dict(CFG, ffn_layer="geglu"))
