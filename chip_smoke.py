@@ -81,6 +81,10 @@ printing no result, without either. Phases, each fatal on failure:
       plain version (max err / max |y| within 2e-2), the kernel, the plain
       version, cuDNN's conv with PyTorch's tail, the whole output stage and
       each stage it replaced timed (tools/bench_head_tail.py).
+  (h'') K8, vitg's SwiGLU gate (silu(x1) * x2), on w12's bf16 output of
+      one window at the benchmark's 518x924 ([32, 2443, 8192]) and at
+      518x518 ([32, 1370, 8192]) against its plain version (PyTorch's two
+      operators), bit for bit; both timed beside K8's byte bound.
   (i) the bench tools' measurement kernels at their vitl shape (B = 32,
       S = 1370, keys padded to 1408, H = 16, dh = 64), bf16: T1's four
       phase probes (and qk+sm's side sum) and T3's two QK probes against
@@ -95,8 +99,9 @@ printing no result, without either. Phases, each fatal on failure:
       without. T2 stagger must equal K1 mxu_denom=True bit for bit.
   (k) vitg and the serving variants: vitg at full width (1.13 B encoder
       parameters drawn on the card) through VideoDepthPipeline on a 44-frame
-      518x518 video (two windows), bf16 (40 K1 per encode, 8 K2 per head),
-      fp32 and int8 (40 K3 per encode), peak memory of each; bf16 held to
+      518x518 video (two windows), bf16 (40 K1 and 40 K8 per encode, 8 K2
+      per head), fp32 and int8 (40 K3 and 40 K8 per encode, 40 K8 in the
+      calibration forward), peak memory of each; bf16 held to
       twice the drift budget of the card's fp32, int8 to limits set from
       card readings, end to end and each of the 40 blocks on its own
       (see vitg_path); vitg's RefineNet cascade with and
@@ -296,6 +301,8 @@ TOL = {"spatial_attention": {"bfloat16": 4e-3, "float32": 1e-4},
        # which rounds the conv before its bias (tests/test_torch_cuda.py
        # holds it to its own arithmetic at 4e-3).
        "head_output_tail": {"bfloat16": "2e-2 of max|y|"},
+       # K8 rounds where PyTorch's silu and product round: bit for bit.
+       "swiglu": {"bfloat16": 0.0},
        # T1's bf16 outputs: one bf16 step of the max (kernel and plain
        # version accumulate in fp32 and round once), two for qk+sm (each
        # exponential is rounded too); its side sum and T3's fp32 outputs:
@@ -865,6 +872,42 @@ def check_k7(record):
     return main
 
 
+def check_k8(gen, record):
+    """(h''): K8, vitg's SwiGLU gate, against its plain version on one
+    window's w12 output (hidden 4096; 2443 tokens a frame at 518x924, 1370
+    at 518x518), bit for bit; each timed beside K8's bound (y read and h
+    written once, bytes at the HBM rate). Returns the 518x924 entry, the
+    518x518 one under "detail"."""
+    import torch
+    from video_depth_anything_torch.kernels import swiglu as k8
+
+    rows = {}
+    for name, tokens in (("518x924", 2443), ("518x518", 1370)):
+        y = (2 * torch.randn(32, tokens, 8192, device="cuda", generator=gen)).to(torch.bfloat16)
+        plain = k8.swiglu_plain(y)
+        got = k8.swiglu(y)
+        same = got.shape == plain.shape and torch.equal(got.view(torch.int16),
+                                                        plain.view(torch.int16))
+        err = (got.float() - plain.float()).abs().max().item()
+        del got, plain
+        if not same:
+            raise AssertionError(f"K8 {name}: not bit for bit the plain version "
+                                 f"(max abs err {err:.3e})")
+        record("swiglu", "bfloat16", err)
+        ms, plain_ms = time_ms(lambda: k8.swiglu(y), 20), time_ms(lambda: k8.swiglu_plain(y), 20)
+        bms, by = bound_ms(0.0, y.numel() * 2 * 3 / 2)
+        rows[name] = dict(shape=list(y.shape), dtype="bfloat16", ms=ms, plain_ms=plain_ms,
+                          library_ms=None, bound_ms=bms, bound_by=by,
+                          roofline_pct=100 * bms / ms)
+        print(f"(h'') K8 at {name} {list(y.shape)} bf16: bit for bit; {ms:.4f} ms (plain "
+              f"{plain_ms:.4f}, bound {bms:.4f} by {by}: {rows[name]['roofline_pct']:.1f} %)",
+              flush=True)
+        del y
+    main = dict(rows["518x924"])
+    main["detail"] = {"roofline_pct": main.pop("roofline_pct"), "518x518": rows["518x518"]}
+    return main
+
+
 def probe_path(cardname, inputs, plain):
     """(i), second part: the two bench tools' functions at their vitl shape
     (the path of T1-T3), launch counts read around them; returns the
@@ -1370,7 +1413,7 @@ def vitg_path(cardname):
           f"(first call) on {cardname}: launches {launches}, peak {peak16:.2f} GiB", flush=True)
     want = {name: 0 for name in launches}
     want.update(spatial_attention=depth * encodes, temporal_attention=8 * n_win,
-                head_output_tail=n_win)
+                head_output_tail=n_win, swiglu=depth * encodes)
     if launches != want or d16.shape != frames.shape[:3] or not np.isfinite(d16).all():
         raise AssertionError(f"vitg bf16: launches {launches} (want {want}), shape {d16.shape}")
     d32, _, wall, peak32 = counted(pipe, fp32=True)
@@ -1388,7 +1431,8 @@ def vitg_path(cardname):
     d8, launches8, wall, peak8 = counted(pipe8)
     want8 = {name: 0 for name in launches8}
     want8.update(spatial_attention=depth, temporal_attention=8 * (n_win + 1),   # + calibration
-                 spatial_attention_qk8=depth * encodes, head_output_tail=n_win + 1)
+                 spatial_attention_qk8=depth * encodes, head_output_tail=n_win + 1,
+                 swiglu=depth * (encodes + 1))
     rep8 = precision_drift_report(d8, d32)
     within = (rep8["max_err_frac"] < INT8_MAX_ERR_FRAC
               and rep8["mean_err_frac"] < INT8_MEAN_ERR_FRAC)
@@ -3017,6 +3061,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     k7 = check_k7(record)
     torch.cuda.empty_cache()
+    k8 = check_k8(gen, record)
+    torch.cuda.empty_cache()
     probe_inputs, probe_plain = check_probes(record)
     probe_entries, launches_tools = probe_path(cardname, probe_inputs, probe_plain)
     del probe_inputs
@@ -3042,9 +3088,11 @@ def main() -> int:
     # Each kernel's launches are counted on its own path: K1 and K2 on the
     # bf16 main path, K3 on the first int8 call, K4 on the head-dim-32
     # pipeline, K5 on its entry's own run, K6 on the vitl RefineNet cascade,
-    # the K2 backward on the vits train step, K7 on the bf16 main path, T1-T3
-    # on the bench tools' run. K7 and T1-T3 are bf16 only (no fp32 error).
-    bf16_only = ("phase_probes", "attention_variants", "qk_probes", "head_output_tail")
+    # the K2 backward on the vits train step, K7 on the bf16 main path, K8 on
+    # vitg's bf16 windows, T1-T3 on the bench tools' run. K7, K8 and T1-T3
+    # are bf16 only (no fp32 error).
+    bf16_only = ("phase_probes", "attention_variants", "qk_probes", "head_output_tail",
+                 "swiglu")
     meta = {
         "spatial_attention": dict(
             source="video_depth_anything_torch/csrc/spatial_attention.cu",
@@ -3078,6 +3126,10 @@ def main() -> int:
             source="video_depth_anything_torch/csrc/head_output_tail.cu",
             replaces="none: XLA fuses video_depth_anything_tpu/models/dpt.py:151 output_head",
             main=k7, path=launches),
+        "swiglu": dict(
+            source="video_depth_anything_torch/csrc/swiglu.cu",
+            replaces="none: XLA fuses video_depth_anything_tpu/models/dinov2.py:78 _ffn's gate",
+            main=k8, path=launches_vitg),
         "phase_probes": dict(
             source="video_depth_anything_torch/csrc/phase_probes.cu",
             replaces="tools/bench_kernel_phases.py:140", main=probe_entries["phase_probes"],

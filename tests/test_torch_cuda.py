@@ -24,6 +24,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+from torch.nn import functional as F
 
 from video_depth_anything_torch import kernels
 from video_depth_anything_torch.config import ViTConfig, get_model_config
@@ -35,10 +36,14 @@ from video_depth_anything_torch.kernels import qk_probes as qp
 from video_depth_anything_torch.kernels import spatial_attention as k1
 from video_depth_anything_torch.kernels import spatial_attention_qk8 as k3
 from video_depth_anything_torch.kernels import spatial_attention_qkv as k5
+from video_depth_anything_torch.kernels import swiglu as k8
 from video_depth_anything_torch.kernels import temporal_attention as k2
 from video_depth_anything_torch.models import build_model
+from video_depth_anything_torch.models.dinov2 import SwiGLUFFNFused
 from video_depth_anything_torch.models.dpt import FeatureFusionBlock
+from video_depth_anything_torch.ops import quant
 from video_depth_anything_torch.pipeline import VideoDepthPipeline, infer
+from video_depth_anything_torch.utils import profiling
 from video_depth_anything_torch.utils.precision import synthetic_video
 
 
@@ -763,7 +768,7 @@ def test_k6_at_vitg_width(card, shape):
 @pytest.mark.cuda
 def test_vitg_window_peak_memory(card):
     """One vitg window (22 frames at 518 x 518, one window of 32 rows, bf16)
-    through the pipeline: 40 K1 launches (one encode), 8 K2, one K7; finite depths;
+    through the pipeline: 40 K1 and 40 K8 launches (one encode), 8 K2, one K7; finite depths;
     its peak device memory, with the fp32 weights (5.1 GiB with the head)
     and their bf16 copy resident, is printed."""
     cfg = get_model_config("vitg")
@@ -775,9 +780,86 @@ def test_vitg_window_peak_memory(card):
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"vitg 518x518, one window, bf16: peak {peak:.2f} GiB")
     assert kernels.launch_counts() == counts(spatial_attention=40, temporal_attention=8,
-                                             head_output_tail=1)
+                                             head_output_tail=1, swiglu=40)
     assert got.shape == (22, 518, 518) and np.isfinite(got).all()
     assert peak < 40
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 2443, 8192), (1, 8192), (7, 8192), (2443, 8192)])
+def test_k8_is_silu_times_x2_bit_for_bit(card, shape):
+    """K8 against ``F.silu(x1) * x2`` on the chunk views, bit for bit, at
+    vitg's hidden 4096: a window's w12 output at 518 x 924 (32 frames of
+    2443 tokens) and ragged row counts (1, 7, 2443 rows: under and past the
+    kernel's 1024-vector tile). Inputs of 4 sigma reach silu's saturated
+    tails; row 0 also holds zeros, +-inf's neighbours and subnormals."""
+    y = (4 * torch.randn(shape, device="cuda", generator=card)).to(torch.bfloat16)
+    edge = torch.tensor([0.0, -0.0, 3e38, -3e38, 1e-39, -1e-39, 88.0, -88.0, 100.0, -100.0],
+                        device="cuda").to(torch.bfloat16)
+    y.view(-1, shape[-1])[0, :edge.numel()] = edge
+    y.view(-1, shape[-1])[0, 4096:4096 + edge.numel()] = edge.flip(0)
+    kernels.reset_launch_counts()
+    got = k8.swiglu(y)
+    x1, x2 = y.chunk(2, dim=-1)
+    assert kernels.launch_counts() == counts(swiglu=1)
+    assert _bits_equal(got, F.silu(x1) * x2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [2443, 9])
+def test_k8_on_an_int8_w12_output_bit_for_bit(card, rows):
+    """The same on the bf16 output of an int8 w12 (``QLinear``, vitg's
+    1536 -> 2 x 4096), as the int8 encoder hands it to the gate (two frames:
+    the int8 product takes M > 16)."""
+    lin = torch.nn.Linear(1536, 8192, device="cuda").to(torch.bfloat16)
+    x = torch.randn(2, rows, 1536, device="cuda", generator=card).to(torch.bfloat16)
+    w12 = quant.QLinear.from_linear(lin, quant.amax(x))
+    with torch.no_grad():
+        y = quant.linear_maybe_q(w12, x)
+    assert y.dtype == torch.bfloat16 and y.is_contiguous()
+    kernels.reset_launch_counts()
+    got = k8.swiglu(y)
+    x1, x2 = y.chunk(2, dim=-1)
+    assert kernels.launch_counts() == counts(swiglu=1)
+    assert _bits_equal(got, F.silu(x1) * x2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_swiglu_ffn_runs_k8_on_the_bf16_path(card, int8, monkeypatch):
+    """vitg's FFN at its widths on the card: bf16 (float or int8 w12 and w3)
+    runs K8 once a call, the calibration forward (``stats``) included, its
+    output bit for bit the FFN's with PyTorch's gate, and
+    ``vda.encoder.swiglu`` counts it fused; fp32 launches nothing."""
+    ffn = SwiGLUFFNFused(1536, 4096).to("cuda")
+    x = torch.randn(2, 300, 1536, device="cuda", generator=card)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        ffn16 = copy.deepcopy(ffn).to(torch.bfloat16)
+        x16 = x.to(torch.bfloat16)
+        ffn(x)
+        ffn(x, stats={})
+        assert kernels.launch_counts() == counts()
+        ffn16(x16, stats={})
+        assert kernels.launch_counts() == counts(swiglu=1)
+        kernels.reset_launch_counts()
+        if int8:
+            ffn16.w12 = quant.QLinear.from_linear(ffn16.w12, quant.amax(x16))
+            ffn16.w3 = quant.QLinear.from_linear(ffn16.w3, torch.tensor(4.0))
+        profiling.reset()
+        with profiling.collecting():
+            got = ffn16(x16)
+        assert kernels.launch_counts() == counts(swiglu=1)
+        row = profiling.totals()["vda.encoder.swiglu"]
+        assert row["count"] == 1 and row["counters"]["fused"] == 1
+        monkeypatch.setattr(SwiGLUFFNFused, "fused", staticmethod(lambda y: False))
+        want = ffn16(x16)
+    assert kernels.launch_counts() == counts(swiglu=1)
+    assert _bits_equal(got, want)
 
 
 # ---------------------------------------------------------------- training

@@ -35,13 +35,17 @@ from video_depth_anything_tpu.pipeline import infer as jinfer
 from video_depth_anything_tpu.utils.precision import (MAX_ERR_FRAC, MEAN_ERR_FRAC,
                                                       precision_drift_report)
 from video_depth_anything_tpu.utils.torch_convert import export_torch_state_dict
+from video_depth_anything_torch import kernels
 from video_depth_anything_torch.config import ModelConfig, ViTConfig, get_model_config
 from video_depth_anything_torch.convert import model_from_params, state_dict_from_params
-from video_depth_anything_torch.models import VideoDepthAnything
+from video_depth_anything_torch.kernels import build
+from video_depth_anything_torch.kernels import swiglu as k8
+from video_depth_anything_torch.models import VideoDepthAnything, dinov2 as tdinov2
 from video_depth_anything_torch.models.dinov2 import SwiGLUFFNFused, swiglu_hidden
 from video_depth_anything_torch.ops import quant
 from video_depth_anything_torch.pipeline import VideoDepthPipeline
 from video_depth_anything_torch.pipeline import infer as tinfer
+from video_depth_anything_torch.utils import profiling
 from video_depth_anything_torch.utils.precision import flip_floor_report, synthetic_video
 from video_depth_anything_torch.utils.tree import flatten_tree
 
@@ -359,3 +363,95 @@ def test_flip_floor_cap_only_lifts_the_budget_cap():
     assert capped["limit"]["rel_l2"] == free["limit"]["rel_l2"]
     assert not capped["ok"] and free["ok"] == all(
         free["got"][k] < free["limit"][k] for k in free["limit"])
+
+
+# ---------------------------------------------------------------- K8 (vitg's SwiGLU gate)
+
+
+def _no_k8(monkeypatch):
+    """The FFN's route to K8 replaced by one that raises."""
+    def refuse(y):
+        raise AssertionError("the FFN called vda::swiglu off the card")
+    monkeypatch.setattr(tdinov2, "swiglu", refuse)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("calibrating", [False, True])
+def test_swiglu_ffn_off_the_card_never_calls_k8(toy, dtype, calibrating, monkeypatch):
+    """On the CPU (fp32 and bf16, with and without calibration stats) the
+    FFN keeps PyTorch's split, silu and product: no call of the op, and the
+    output is w3(silu(x1) * x2) as those operators give it, bit for bit."""
+    _no_k8(monkeypatch)
+    ffn = copy.deepcopy(toy[1].pretrained.blocks[0].mlp).to(dtype)
+    x = _t(_rand((3, 17, 128), 7)).to(dtype)
+    stats = {} if calibrating else None
+    with torch.no_grad():
+        got = ffn(x, stats)
+        x1, x2 = torch.nn.functional.linear(x, ffn.w12.weight, ffn.w12.bias).chunk(2, dim=-1)
+        want = torch.nn.functional.linear(torch.nn.functional.silu(x1) * x2, ffn.w3.weight,
+                                          ffn.w3.bias)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert SwiGLUFFNFused.fused(x1) is False
+    assert calibrating == ("fc2" in (stats or {}))
+
+
+def test_swiglu_span_reads_fused_0_off_the_card(toy, monkeypatch):
+    """``vda.encoder.swiglu`` counts one call a block, ``fused`` 0 on the
+    CPU, inside ``collecting()``; off, it records nothing."""
+    _no_k8(monkeypatch)
+    x = _t(_rand((2, 28, 28, 3), 3))
+    profiling.reset()
+    with torch.no_grad():
+        toy[1].pretrained.get_intermediate_layers(x, (0, 1))
+        assert "vda.encoder.swiglu" not in profiling.totals()
+        with profiling.collecting():
+            toy[1].pretrained.get_intermediate_layers(x, (0, 1))
+    row = profiling.totals()["vda.encoder.swiglu"]
+    assert row["count"] == 2 and row["counters"] == {"fused": 0}
+    assert profiling.totals()["vda.encoder.mlp"]["count"] == 2
+    profiling.reset()
+
+
+@pytest.mark.parametrize("shape", [(1, 16), (7, 344 * 2), (2, 5, 8192)])
+def test_k8_op_on_the_cpu_is_the_plain_version(shape):
+    """``vda::swiglu``'s CPU implementation is ``F.silu(x1) * x2`` bit for
+    bit, passes ``opcheck``, and its fake implementation gives [..., H] on
+    the meta device; the wrapper counts no launch off the card."""
+    y = _t(_rand(shape, 11, 4.0)).to(torch.bfloat16)
+    kernels.reset_launch_counts()
+    x1, x2 = y.chunk(2, dim=-1)
+    assert torch.equal(k8.swiglu(y), torch.nn.functional.silu(x1) * x2)
+    assert torch.equal(k8.swiglu_plain(y), torch.nn.functional.silu(x1) * x2)
+    torch.library.opcheck(k8.swiglu_op, (y,))
+    assert k8.swiglu(torch.empty(shape, device="meta")).shape == (*shape[:-1], shape[-1] // 2)
+    assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
+
+
+def test_k8_is_a_built_and_counted_kernel():
+    """K8 is one of the nvcc sources and of the counted kernels, and
+    refuses a gradient."""
+    assert "swiglu" in build.SOURCES and kernels.KERNELS["swiglu"] is k8.swiglu
+    y = torch.zeros(2, 16, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        k8.swiglu(y)
+
+
+def test_swiglu_ffn_routes_bf16_to_k8_in_a_trace(toy, monkeypatch):
+    """Where the FFN takes K8 (bf16 on a card or in a trace, calibration
+    included, no gradient), the op's output is the FFN's: the CPU
+    implementation under a patched ``tracing`` stands in for the card."""
+    ffn = copy.deepcopy(toy[1].pretrained.blocks[0].mlp).to(torch.bfloat16)
+    x = _t(_rand((3, 17, 128), 9)).to(torch.bfloat16)
+    with torch.no_grad():
+        want = ffn(x)
+        monkeypatch.setattr(tdinov2, "tracing", lambda: True)
+        calls = []
+        monkeypatch.setattr(tdinov2, "swiglu", lambda y: calls.append(y.shape) or k8.swiglu(y))
+        got = ffn(x)
+        stats = {}
+        calibrated = ffn(x, stats)                   # calibration: one call
+        ffn.float()(x.float())                       # fp32: no call
+    assert calls == [(3, 17, 2 * 344)] * 2 and "fc2" in stats
+    assert torch.equal(got, want) and torch.equal(calibrated, want)
+    y = torch.zeros(2, 16, dtype=torch.bfloat16, requires_grad=True)
+    assert SwiGLUFFNFused.fused(y) is False          # a gradient keeps the operators

@@ -7,7 +7,8 @@ Every kernel the model calls is a ``torch.library`` custom op in the
 ``vda::temporal_attention`` (K2) and ``vda::temporal_attention_backward``
 (its gradient), ``vda::spatial_attention_qkv_fused`` (K5),
 ``vda::attention_head_major`` (K4, the functional form),
-``vda::fused_rcu`` (K6) and ``vda::head_output_tail`` (K7). Each op's CPU
+``vda::fused_rcu`` (K6), ``vda::head_output_tail`` (K7) and
+``vda::swiglu`` (K8, vitg's SwiGLU gate). Each op's CPU
 implementation is the kernel's plain version, its CUDA implementation the
 kernel through its ctypes binding (a failed build or launch raises), and
 its fake implementation gives the output's shape, dtype and strides
@@ -32,7 +33,7 @@ from __future__ import annotations
 
 from . import (attention_head_major, attention_variants, fused_rcu, head_output_tail,
                qk_probes, spatial_attention, spatial_attention_qk8, spatial_attention_qkv,
-               temporal_attention)
+               swiglu, temporal_attention)
 
 KERNELS = {
     "spatial_attention": spatial_attention.spatial_attention,
@@ -43,6 +44,7 @@ KERNELS = {
     "spatial_attention_qkv_fused": spatial_attention_qkv.spatial_attention_qkv_fused,
     "fused_rcu": fused_rcu.fused_rcu,
     "head_output_tail": head_output_tail.head_output_tail,
+    "swiglu": swiglu.swiglu,
     # The measurement kernels of the bench tools (tools/bench_kernel_*.py).
     "phase_probes": qk_probes.phase_probe,
     "attention_variants": attention_variants.attention_variant,

@@ -29,7 +29,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("spatial_attention", "temporal_attention", "spatial_attention_qk8",
            "attention_head_major", "fused_rcu", "qk_probes", "attention_variants",
            "phase_probes", "attention_switches", "temporal_attention_backward",
-           "head_output_tail")
+           "head_output_tail", "swiglu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
 

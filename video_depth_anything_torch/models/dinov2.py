@@ -7,7 +7,8 @@ interpolation offset. Attribute paths are the original checkpoint's keys
 (``blocks.{i}.attn.qkv`` is one fused Linear). Spatial attention runs
 kernel K1 (``kernels/spatial_attention.py``) on the fused projection's
 column views; a head dim other than 64 goes on from there to K4, as in
-the JAX package.
+the JAX package. The fused SwiGLU's gate runs kernel K8
+(``kernels/swiglu.py``) on the card's bf16 path.
 
 int8 mode (``ops/quant.py::quantize_encoder``): the fused qkv, proj, fc1
 and fc2 (SwiGLU: w12 and w3) become ``QLinear`` sites, and q and k are
@@ -34,9 +35,10 @@ from torch.nn import functional as F
 from ..config import ViTConfig
 from ..kernels.spatial_attention import spatial_attention
 from ..kernels.spatial_attention_qk8 import spatial_attention_qk8
+from ..kernels.swiglu import swiglu
 from ..ops import nn as vnn
 from ..ops import quant
-from ..ops.resize import device_matrix
+from ..ops.resize import device_matrix, tracing
 from ..parallel.tensor import copy_to_model, max_over_model
 from ..utils import profiling
 
@@ -125,7 +127,9 @@ def swiglu_hidden(dim: int, mlp_ratio: float) -> int:
 class SwiGLUFFNFused(nn.Module):
     """vitg's FFN: w12 -> split -> silu(x1) * x2 -> w3, as the JAX package's
     ``_ffn``. The split, silu and the product each round in the activation
-    dtype."""
+    dtype. Where ``fused`` holds, the gate is kernel K8
+    (``kernels/swiglu.py``), which rounds the same way; the span
+    ``vda.encoder.swiglu`` counts ``fused``, the calls that ran it."""
 
     def __init__(self, dim: int, hidden: int):
         super().__init__()
@@ -133,9 +137,25 @@ class SwiGLUFFNFused(nn.Module):
         self.w12 = nn.Linear(dim, 2 * hidden)
         self.w3 = nn.Linear(hidden, dim)
 
+    @staticmethod
+    def fused(y: torch.Tensor) -> bool:
+        """Whether the gate runs as K8: a bf16 w12 output (a float or an int8
+        w12; on a mesh this rank's [.., 2H / tp], still x1 beside x2) on a
+        card or in a trace, outside autograd. The CPU and fp32 keep
+        PyTorch's two operators."""
+        return (y.dtype == torch.bfloat16 and (y.is_cuda or tracing())
+                and not (torch.is_grad_enabled() and y.requires_grad))
+
     def forward(self, x: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
-        x1, x2 = quant.linear_maybe_q(self.w12, copy_to_model(x, self.tp)).chunk(2, dim=-1)
-        h = F.silu(x1) * x2
+        y = quant.linear_maybe_q(self.w12, copy_to_model(x, self.tp))
+        with profiling.span("vda.encoder.swiglu") as sp:
+            fused = self.fused(y)
+            sp.add(fused=int(fused))
+            if fused:
+                h = swiglu(y)
+            else:
+                x1, x2 = y.chunk(2, dim=-1)
+                h = F.silu(x1) * x2
         if stats is not None:   # the w3 input's absmax, in the "fc2" slot
             stats["fc2"] = max_over_model(quant.amax(h), self.tp)
         return quant.linear_maybe_q(self.w3, h, tp=self.tp)
@@ -168,7 +188,8 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, stats: dict | None = None) -> torch.Tensor:
         """One block; with ``stats``, the block's activation absmaxes land
         there under the ``quant.ACT_SITES`` names. Its stages are the spans
-        ``vda.encoder.norm1``, ``.attn``, ``.norm2`` and ``.mlp``."""
+        ``vda.encoder.norm1``, ``.attn``, ``.norm2`` and ``.mlp`` (SwiGLU's
+        gate inside it: ``vda.encoder.swiglu``)."""
         with profiling.span("vda.encoder.norm1"):
             y = vnn.layer_norm(x, self.norm1.weight, self.norm1.bias, 1e-6)
             if stats is not None:

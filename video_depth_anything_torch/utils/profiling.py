@@ -56,7 +56,9 @@ totals its count and host seconds, and those marked also:
   seconds.
 - ``vda.encoder``: ``get_intermediate_layers`` (pipeline and train step);
   device seconds, frames. Its stages ``vda.encoder.embed``, ``.norm1``,
-  ``.attn``, ``.norm2``, ``.mlp``, ``.final_norm``.
+  ``.attn``, ``.norm2``, ``.mlp``, ``.final_norm``; inside ``.mlp``, the
+  fused SwiGLU FFN's gate ``vda.encoder.swiglu`` (counter fused: the calls
+  that ran kernel K8).
 - ``vda.head``: ``DPTHeadTemporal.forward``; device seconds. Its
   stages in order ``vda.head.project``, ``.motion0``, ``.motion1``, ``.rn``,
   ``.refinenet4``, ``.motion2``, ``.refinenet3``, ``.motion3``,
